@@ -25,10 +25,13 @@ def full_fp32():
     """Float32 matmuls and convolutions at full float32 precision (no TF32)
     inside the block — the counterpart of JAX's ``Precision.HIGHEST``.
     Restores the previous settings on exit."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    # set the one attribute: ``torch.backends.cudnn.flags()`` would also
+    # reset ``enabled`` to its own default, False, and send every
+    # convolution inside the block past cuDNN
+    torch.backends.cudnn.allow_tf32 = False
     try:
-        with torch.backends.cudnn.flags(allow_tf32=False):
-            yield
+        yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

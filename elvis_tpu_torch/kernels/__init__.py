@@ -1,6 +1,7 @@
 from elvis_tpu_torch.kernels.block_transform import (
     LAUNCHES,
     apply_block_matrix,
+    apply_block_matrix_batched_cuda,
     apply_block_matrix_cuda,
     apply_block_matrix_fast,
     blur_matrix_table,
@@ -11,6 +12,7 @@ from elvis_tpu_torch.kernels.block_transform import (
 __all__ = [
     "LAUNCHES",
     "apply_block_matrix",
+    "apply_block_matrix_batched_cuda",
     "apply_block_matrix_cuda",
     "apply_block_matrix_fast",
     "blur_matrix_table",

@@ -10,14 +10,28 @@ for the adaptive downsample, ``B^r`` for r within-block blur rounds.
   * ``apply_block_matrix`` — the plain PyTorch version (gather + two
     einsums). The CPU path, and the comparison target on the card;
   * ``apply_block_matrix_cuda`` — the hand-written CUDA kernel
-    (``csrc/block_transform.cu``), replacing the TPU kernel
-    ``apply_block_matrix_pallas_kron``. CUDA tensors only;
+    ``csrc/block_transform.cu``, replacing the TPU kernel
+    ``apply_block_matrix_pallas_kron``: threads walk a group of blocks
+    element by element, Y = T X goes through shared memory. CUDA tensors
+    only;
+  * ``apply_block_matrix_batched_cuda`` — the hand-written CUDA kernel
+    ``csrc/block_transform_batched.cu``, replacing the TPU kernel
+    ``apply_block_matrix_pallas``: the batched-small-matrix form, one
+    ``(b, b)`` matrix of one block and channel per sub-warp of b lanes,
+    both products in registers. Same contract, CUDA tensors only. Like
+    its TPU counterpart it is a public function with no caller inside the
+    package;
   * ``apply_block_matrix_fast`` — what the call sites use: an autograd
     function whose forward and backward (the same transform with T^T) go
-    through the kernel on CUDA tensors and through the plain version on
-    CPU tensors.
+    through the first kernel on CUDA tensors and through the plain
+    version on CPU tensors.
 
-``LAUNCHES["block_transform"]`` counts the kernel's launches.
+One plain version serves both kernels. All three read a level as indexing
+the table on the host does in the JAX package: a negative level wraps once
+(``l + L``), and what is still outside ``[0, L)`` is clamped.
+
+``LAUNCHES["block_transform"]`` and ``LAUNCHES["block_transform_batched"]``
+count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ __all__ = [
     "resample_matrix_table",
     "apply_block_matrix",
     "apply_block_matrix_cuda",
+    "apply_block_matrix_batched_cuda",
     "apply_block_matrix_fast",
 ]
 
@@ -93,8 +108,13 @@ def resample_matrix_table(b: int, up_method: str = "linear",
 def apply_block_matrix(blocks: torch.Tensor, table: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
     """Plain version: blocks ``(..., b, b, C)``, table ``(L, b, b)``, idx
-    ``(...,)`` int -> ``T[idx] @ X @ T[idx].T`` per block, float32."""
-    t = torch.as_tensor(table, dtype=torch.float32, device=blocks.device)[idx.long()]
+    ``(...,)`` int -> ``T[idx] @ X @ T[idx].T`` per block, float32. A
+    negative level wraps once, the rest is clamped to ``[0, L)``."""
+    table = torch.as_tensor(table, dtype=torch.float32, device=blocks.device)
+    levels = table.shape[0]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + levels, idx).clamp(0, levels - 1)
+    t = table[idx]
     x = blocks.float()
     with full_fp32():
         y = torch.einsum("...ij,...jkc->...ikc", t, x)
@@ -102,6 +122,7 @@ def apply_block_matrix(blocks: torch.Tensor, table: torch.Tensor,
 
 
 _SMEM_BUDGET = 26 * 1024  # bytes per CTA: 8 CTAs of 256 threads fit on one SM
+_BATCHED_TILE_BYTES = 24 * 1024  # the batched kernel's one tile of blocks per CTA
 
 
 def _group_size(b: int, c: int, levels: int) -> int:
@@ -110,11 +131,18 @@ def _group_size(b: int, c: int, levels: int) -> int:
     return (_SMEM_BUDGET - levels * b * b * 4) // (8 * b * b * c + 4)
 
 
-@functools.lru_cache(maxsize=1)
-def _kernel_fn():
+def _batched_group_size(b: int, c: int) -> int:
+    """Blocks per CTA of the batched kernel: one tile, transformed in
+    place (beside the table, padded to b*b + 4 floats per entry)."""
+    return _BATCHED_TILE_BYTES // (4 * b * b * c)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(name: str):
+    """The C entry point ``elvis_<name>`` of ``csrc/<name>.cu``."""
     from elvis_tpu_torch.kernels import _build
 
-    fn = _build.load("block_transform").elvis_block_transform
+    fn = getattr(_build.load(name), f"elvis_{name}")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
@@ -122,13 +150,13 @@ def _kernel_fn():
     return fn
 
 
-def apply_block_matrix_cuda(blocks: torch.Tensor, table: torch.Tensor,
-                            idx: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: blocks ``(M, b, b, C)`` float32, table ``(L, b, b)``
-    float32, idx ``(M,)`` int32, all contiguous on one CUDA device;
-    b in {8, 16}, 1 <= L <= 16. Returns a new ``(M, b, b, C)`` float32."""
+def _launch(name: str, blocks: torch.Tensor, table: torch.Tensor, idx: torch.Tensor,
+            group_size) -> torch.Tensor:
+    """Check the arguments of a kernel wrapper, launch ``csrc/<name>.cu`` on
+    the current stream and count the launch. Raises on anything the kernel
+    does not take and on a failed launch."""
     if not (blocks.is_cuda and table.is_cuda and idx.is_cuda):
-        raise ValueError("apply_block_matrix_cuda takes CUDA tensors only")
+        raise ValueError(f"the {name} kernel takes CUDA tensors only")
     if not (blocks.device == table.device == idx.device):
         raise ValueError("blocks, table and idx must lie on one device")
     if blocks.dtype != torch.float32 or table.dtype != torch.float32 or idx.dtype != torch.int32:
@@ -147,21 +175,38 @@ def apply_block_matrix_cuda(blocks: torch.Tensor, table: torch.Tensor,
     if not (blocks.is_contiguous() and table.is_contiguous() and idx.is_contiguous()):
         raise ValueError("blocks, table and idx must be contiguous")
     levels = table.shape[0]
-    group = _group_size(b, c, levels)
+    group = group_size(b, c, levels)
     if group < 1:
         raise ValueError(f"{c} channels do not fit the kernel's shared-memory tile")
     out = torch.empty_like(blocks)
     if m == 0:
         return out
-    fn = _kernel_fn()
+    fn = _kernel_fn(name)
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
         err = fn(blocks.data_ptr(), table.data_ptr(), idx.data_ptr(), out.data_ptr(),
                  m, b, c, levels, group, stream)
-        LAUNCHES["block_transform"] += 1
+        LAUNCHES[name] += 1
     if err != 0:
-        raise RuntimeError(f"block_transform kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out
+
+
+def apply_block_matrix_cuda(blocks: torch.Tensor, table: torch.Tensor,
+                            idx: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel: blocks ``(M, b, b, C)`` float32, table ``(L, b, b)``
+    float32, idx ``(M,)`` int32, all contiguous on one CUDA device;
+    b in {8, 16}, 1 <= L <= 16. Returns a new ``(M, b, b, C)`` float32."""
+    return _launch("block_transform", blocks, table, idx, _group_size)
+
+
+def apply_block_matrix_batched_cuda(blocks: torch.Tensor, table: torch.Tensor,
+                                    idx: torch.Tensor) -> torch.Tensor:
+    """The batched-small-matrix CUDA kernel: the contract of
+    ``apply_block_matrix_cuda``, computed one ``(b, b)`` matrix per
+    sub-warp with both products in registers."""
+    return _launch("block_transform_batched", blocks, table, idx,
+                   lambda b, c, levels: _batched_group_size(b, c))
 
 
 def _transform(blocks: torch.Tensor, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,8 @@
 // element order. Threads walk the group's elements linearly, so both the
 // load and the store are coalesced.
 //
-// Levels outside [0, L) are clamped, as JAX's gather clamps them.
+// A negative level wraps once (l + L) and what is still outside [0, L) is
+// clamped, as indexing the table on the host does in the reference.
 // b is a template parameter (8 or 16); L <= 16 and C come at run time.
 
 #include <cuda_runtime.h>
@@ -56,7 +57,8 @@ block_transform_kernel(const float* __restrict__ x, const float* __restrict__ ta
 
   for (int e = threadIdx.x; e < levels * B * B; e += kThreads) s_t[e] = table[e];
   for (int g = threadIdx.x; g < g_n; g += kThreads) {
-    const int l = idx[m0 + g];
+    int l = idx[m0 + g];
+    if (l < 0) l += levels;
     s_l[g] = min(max(l, 0), levels - 1);
   }
   for (int e = threadIdx.x; e < n; e += kThreads) s_x[e] = xg[e];

@@ -1,3 +1,4 @@
+from elvis_tpu_torch.models.deblur_unet import DeblurUNet
 from elvis_tpu_torch.models.srnet import (
     SRNetCompact,
     SRNetLarge,
@@ -5,4 +6,4 @@ from elvis_tpu_torch.models.srnet import (
     srnet_upsample_fn,
 )
 
-__all__ = ["SRNetCompact", "SRNetLarge", "srnet_phase_fn", "srnet_upsample_fn"]
+__all__ = ["DeblurUNet", "SRNetCompact", "SRNetLarge", "srnet_phase_fn", "srnet_upsample_fn"]

@@ -1,10 +1,12 @@
 """Weights for the port's models (the counterpart of ``elvis_tpu.models.io``).
 
-The shipped SR checkpoints reach the port as numpy ``.npz`` files under
+The shipped checkpoints reach the port as numpy ``.npz`` files under
 ``elvis_tpu_torch/weights/``: float32 arrays stored under their flax paths
-(``params/head/kernel``, ...), plus the model's ``features`` and
-``num_convs``. ``params_from_flax`` turns such a tree into a PyTorch
-state_dict (HWIO kernels -> OIHW); ``load_srnet`` builds the model.
+(``params/head/kernel``, ...), plus the model's hyper-parameters as
+scalars (``features`` and ``num_convs`` for the SR nets; ``features``,
+``levels`` and the trained ``max_strength`` for the deblur net).
+``params_from_flax`` turns such a tree into a PyTorch state_dict (HWIO
+kernels -> OIHW); ``load_srnet`` and ``load_deblur`` build the models.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from elvis_tpu_torch.device import resolve_device
+from elvis_tpu_torch.models.deblur_unet import DeblurUNet
 from elvis_tpu_torch.models.srnet import SRNetCompact
 
 __all__ = [
@@ -24,6 +27,7 @@ __all__ = [
     "params_from_flax",
     "read_npz",
     "load_srnet",
+    "load_deblur",
 ]
 
 
@@ -41,8 +45,10 @@ def weights_path(name: str) -> Optional[str]:
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """A flax param tree of numpy arrays (``{'params': {...}}`` or its inner
-    dict) -> an SRNetCompact state_dict. Conv kernels go HWIO -> OIHW; the
-    names ``head``, ``conv{i}``, ``up``, ``tail`` carry over."""
+    dict) whose layers are all 2-D convs -> a state_dict for the port's
+    module of the same layer names (SRNetCompact: ``head``, ``conv{i}``,
+    ``up``, ``tail``; DeblurUNet: ``enc{i}a``, ``down{i}``, ``up{i}``, ...).
+    Conv kernels go HWIO -> OIHW; output channels keep the flax order."""
     params = tree.get("params", tree)
     state = {}
     for name, leaf in params.items():
@@ -77,5 +83,16 @@ def load_srnet(path: str, device: "str | torch.device" = "cuda") -> SRNetCompact
     dev = resolve_device(device)
     tree, meta = read_npz(path)
     model = SRNetCompact(features=int(meta["features"]), num_convs=int(meta["num_convs"]))
+    model.load_state_dict(params_from_flax(tree))
+    return model.to(dev).eval().requires_grad_(False)
+
+
+def load_deblur(path: str, device: "str | torch.device" = "cuda") -> DeblurUNet:
+    """An inference-ready DeblurUNet from a port weights file, on ``device``,
+    conditioned with the ``max_strength`` it was trained with."""
+    dev = resolve_device(device)
+    tree, meta = read_npz(path)
+    model = DeblurUNet(features=int(meta["features"]), levels=int(meta["levels"]),
+                       max_strength=float(meta["max_strength"]))
     model.load_state_dict(params_from_flax(tree))
     return model.to(dev).eval().requires_grad_(False)

@@ -25,3 +25,14 @@ class ElvisConfig:
     auto_load_checkpoints: bool = True
     # path of a port weights file (.npz) that pins the SR net
     srnet_params_path: Optional[str] = None
+    # blur branch: rounds = round(score * gaussian_max_rounds)
+    gaussian_max_rounds: int = 10
+    # restorers of the blur branch, first = the "PRESLEY InstantIR" row:
+    # 'deblur_net' (trained UNet; unsharp without weights) or 'unsharp'
+    deblur_backends: List[str] = field(default_factory=lambda: ["deblur_net"])
+    # path of a port weights file (.npz) that pins the deblur net
+    deblur_params_path: Optional[str] = None
+    # the classical rows (per-block Lanczos, unsharp mask)
+    generate_opencv_benchmarks: bool = True
+    # frames per invocation of a deblur backend (None: by pixel budget)
+    instantir_parallel_chunk_length: Optional[int] = None

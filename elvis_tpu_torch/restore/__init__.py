@@ -1,3 +1,10 @@
+from elvis_tpu_torch.restore.backends import resolve_deblur_backend, resolve_sr_backend
+from elvis_tpu_torch.restore.hybrid import blended_restoration
+from elvis_tpu_torch.restore.lanczos import (
+    restore_downsample_lanczos,
+    restore_downsample_scale_lanczos,
+)
+from elvis_tpu_torch.restore.level_seq import level_sequential_restore, naive_sr_restore
 from elvis_tpu_torch.restore.progressive import (
     StagedUpsampler,
     lanczos_upsample_2x,
@@ -8,12 +15,21 @@ from elvis_tpu_torch.restore.registry import (
     get_restorer,
     register_restorer,
 )
+from elvis_tpu_torch.restore.unsharp import restore_blur_unsharp
 
 __all__ = [
     "StagedUpsampler",
     "available_restorers",
+    "blended_restoration",
     "get_restorer",
     "lanczos_upsample_2x",
+    "level_sequential_restore",
+    "naive_sr_restore",
     "progressive_restore",
     "register_restorer",
+    "resolve_deblur_backend",
+    "resolve_sr_backend",
+    "restore_blur_unsharp",
+    "restore_downsample_lanczos",
+    "restore_downsample_scale_lanczos",
 ]

@@ -1,13 +1,15 @@
-"""The port's committed SR weights against the orbax checkpoints they were
-exported from, and the port's import boundary.
+"""The port's committed weights (SR nets, deblur net) against the orbax
+checkpoints they were exported from, and the port's import boundary.
 
 Export (run once, from the repo root, where JAX and orbax are installed):
 
     python tests/test_torch_weights.py --write
 
-writes ``elvis_tpu_torch/weights/<name>.npz`` for each name in ``EXPORTS``:
-the flax param tree as float32 arrays under their ``params/<layer>/<leaf>``
-paths, plus the model's ``features`` and ``num_convs``.
+writes ``elvis_tpu_torch/weights/<name>.npz`` for each name in ``EXPORTS``
+and for ``deblur``: the flax param tree as float32 arrays under their
+``params/<layer>/<leaf>`` paths, plus the model's hyper-parameters
+(``features`` and ``num_convs``; for ``deblur``: ``features``, ``levels`` and
+the ``max_strength`` of ``checkpoints/deblur.meta.json``).
 """
 
 import ast
@@ -21,6 +23,8 @@ REPO = Path(__file__).resolve().parents[1]
 # name -> (features, num_convs); the student's width/depth come from its
 # checkpoints/srnet_student.meta.json, srnet_compact is the flax default
 EXPORTS = {"srnet_student": (256, 6), "srnet_compact": (128, 5)}
+# the shipped DeblurUNet is the flax default width and depth
+DEBLUR = {"features": 32, "levels": 3}
 
 
 def _flat(tree, prefix=""):
@@ -38,20 +42,34 @@ def orbax_params(name):
     """The flax param tree of ``checkpoints/<name>`` as host numpy arrays."""
     import jax.numpy as jnp
 
-    from elvis_tpu.models import SRNetCompact
+    from elvis_tpu.models import DeblurUNet, SRNetCompact
     from elvis_tpu.models.io import load_params
 
+    if name == "deblur":  # the example args of restore.backends.resolve_deblur_backend
+        return load_params(DeblurUNet(**DEBLUR), str(REPO / "checkpoints" / name),
+                           jnp.zeros((1, 16, 16, 3)), jnp.zeros((1, 2, 2), jnp.int32), 8)
     feats, convs = EXPORTS[name]
     model = SRNetCompact(features=feats, num_convs=convs)
     return load_params(model, str(REPO / "checkpoints" / name), jnp.zeros((1, 16, 16, 3)))
 
 
+def deblur_max_strength():
+    import json
+
+    return float(json.loads((REPO / "checkpoints" / "deblur.meta.json").read_text())
+                 ["max_strength"])
+
+
 def write_weights(name):
-    feats, convs = EXPORTS[name]
+    if name == "deblur":
+        meta = {"features": np.int64(DEBLUR["features"]), "levels": np.int64(DEBLUR["levels"]),
+                "max_strength": np.float64(deblur_max_strength())}
+    else:
+        feats, convs = EXPORTS[name]
+        meta = {"features": np.int64(feats), "num_convs": np.int64(convs)}
     out = REPO / "elvis_tpu_torch" / "weights" / f"{name}.npz"
     out.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(out, features=np.int64(feats), num_convs=np.int64(convs),
-                        **_flat(orbax_params(name)))
+    np.savez_compressed(out, **meta, **_flat(orbax_params(name)))
     return out
 
 
@@ -77,6 +95,34 @@ def test_committed_weights_equal_orbax_restore():
         for key in want:
             assert got[key].dtype == np.float32
             np.testing.assert_array_equal(got[key], want[key], err_msg=f"{name}:{key}")
+
+
+def test_committed_deblur_weights_equal_orbax_restore():
+    """Every array of the committed deblur.npz equals the orbax restore
+    exactly, and its meta is the checkpoint's."""
+    from elvis_tpu_torch.models.io import read_npz, weights_path
+
+    path = weights_path("deblur")
+    assert path is not None, "missing elvis_tpu_torch/weights/deblur.npz"
+    tree, meta = read_npz(path)
+    assert meta == {**DEBLUR, "max_strength": deblur_max_strength()}
+    want = _flat(orbax_params("deblur"))
+    got = _flat(tree)
+    assert sorted(got) == sorted(want) and len(want) == 34  # 17 convs
+    for key in want:
+        assert got[key].dtype == np.float32
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def test_load_deblur_builds_the_shipped_net():
+    import torch
+
+    from elvis_tpu_torch.models.io import load_deblur, weights_path
+
+    net = load_deblur(weights_path("deblur"), device="cpu")
+    assert (net.features, net.levels, net.max_strength) == (32, 3, deblur_max_strength())
+    assert net.dtype == torch.bfloat16 and not net.training
+    assert not any(p.requires_grad for p in net.parameters())
 
 
 def test_params_from_flax_layout():
@@ -125,5 +171,5 @@ if __name__ == "__main__":
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, str(REPO))
-    for n in EXPORTS:
+    for n in (*EXPORTS, "deblur"):
         print(write_weights(n))
