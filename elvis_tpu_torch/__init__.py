@@ -14,12 +14,17 @@ and use their plain PyTorch versions only for CPU tensors. There are two,
 both CUDA C++ for ``sm_90a`` and both the per-block transform
 ``T[idx] @ X @ T[idx].T``:
 
-  * ``kernels/csrc/block_transform.cu`` (``apply_block_matrix_cuda``, what
-    ``apply_block_matrix_fast`` launches) replaces the TPU kernel
+  * ``kernels/csrc/block_transform.cu`` (``apply_table_to_frames``, what the
+    degrade functions, the per-block Lanczos restorers and the unsharp mask
+    launch once per call on the frames as they lie in memory, and
+    ``apply_block_matrix_cuda`` / ``apply_block_matrix_fast`` on blocks)
+    replaces the TPU kernel
     ``elvis_tpu.kernels.block_transform.apply_block_matrix_pallas_kron``;
   * ``kernels/csrc/block_transform_batched.cu``
     (``apply_block_matrix_batched_cuda``) replaces the TPU kernel
     ``elvis_tpu.kernels.block_transform.apply_block_matrix_pallas``.
+
+Both share their arithmetic, ``kernels/csrc/block_transform_core.cuh``.
 """
 
 __version__ = "0.1.0"

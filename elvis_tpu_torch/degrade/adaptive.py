@@ -7,7 +7,7 @@
 
 Both are one per-block matrix transform (``kernels.block_transform``): each
 block's level picks a precomputed (b, b) operator, and the whole clip goes
-through the kernel in one read and one write.
+through the kernel in one read and one write, as frames of its own type.
 """
 
 from __future__ import annotations
@@ -17,9 +17,8 @@ import math
 import numpy as np
 import torch
 
-from elvis_tpu_torch.core.blocks import combine_blocks, split_into_blocks
 from elvis_tpu_torch.kernels.block_transform import (
-    apply_block_matrix_fast,
+    apply_table_to_frames,
     blur_matrix_table,
     resample_matrix_table,
 )
@@ -45,16 +44,10 @@ def blur_levels_from_scores(scores: torch.Tensor, max_rounds: int = 10) -> torch
     return torch.round(scores * max_rounds).to(torch.int32)
 
 
-def _finalize(frames_dtype: torch.dtype, out: torch.Tensor) -> torch.Tensor:
-    if not frames_dtype.is_floating_point:
-        out = torch.clamp(torch.round(out), 0, 255)
-    return out.to(frames_dtype)
-
-
 def _apply_table(frames, table, levels, block_size):
-    blocks = split_into_blocks(frames, block_size)
-    out_blocks = apply_block_matrix_fast(blocks, table, levels)
-    return _finalize(frames.dtype, combine_blocks(out_blocks))
+    """Frames through ``table`` by ``levels``, back in their own type
+    (integer types rounded half-to-even and clipped to [0, 255])."""
+    return apply_table_to_frames(frames, table, levels, block_size)
 
 
 def adaptive_downsample(frames: torch.Tensor, scores: torch.Tensor, block_size: int):

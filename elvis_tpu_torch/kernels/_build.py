@@ -3,8 +3,9 @@
 Each source under ``csrc/`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, which is
 loaded with ``ctypes``. Libraries go to ``elvis_tpu_torch/_build/`` (listed
-in ``.gitignore``), named by a hash of their source, and are built at
-first use; ``build_all`` starts one ``nvcc`` per source at once.
+in ``.gitignore``), named by a hash of their source and of the headers it
+includes from ``csrc/``, and are built at first use; ``build_all`` starts
+one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,8 +46,27 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_files(path: Path, seen: Optional[list] = None) -> list:
+    """``path`` and every file it includes with ``#include "..."`` (beside
+    it, recursively), each once, in include order."""
+    seen = [] if seen is None else seen
+    if path not in seen:
+        seen.append(path)
+        for rel in _INCLUDE.findall(path.read_text()):
+            _source_files((path.parent / rel).resolve(), seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
+    """Library path named by a hash of the source and its own headers: a
+    changed header rebuilds every source that includes it."""
+    sha = hashlib.sha256()
+    for path in _source_files(SOURCES[name]):
+        sha.update(path.read_bytes())
+    digest = sha.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -6,7 +6,8 @@ blurred reference is a Gaussian of OpenCV's auto kernel size for 8-bit
 images (``round(sigma * 6 + 1) | 1``) with reflect-101 borders inside the
 block, and the output is ``(1 + amount) * block - amount * blurred``
 clipped to [0, 255]. The per-level Gaussian is a gathered ``(b, b)`` matrix,
-so the restore is one per-block matrix transform plus an affine combine.
+so the restore is one per-block matrix transform with an affine combine as
+its epilogue (on the card: inside the kernel).
 """
 
 from __future__ import annotations
@@ -16,9 +17,8 @@ import functools
 import numpy as np
 import torch
 
-from elvis_tpu_torch.core.blocks import combine_blocks, split_into_blocks
 from elvis_tpu_torch.kernels.block_transform import (
-    apply_block_matrix_fast,
+    apply_table_to_frames,
     conv_matrix_reflect101,
 )
 from elvis_tpu_torch.restore.registry import register_restorer
@@ -48,12 +48,6 @@ def restore_blur_unsharp(frames: torch.Tensor, level_maps: torch.Tensor, block_s
     """frames ``(N,H,W,C)`` blurred, level_maps ``(N,By,Bx)`` blur rounds
     -> sharpened frames in the input dtype; level-0 blocks come back
     bit-exact."""
-    blocks = split_into_blocks(frames, block_size).float()
     table = _unsharp_blur_table(block_size, max_rounds)
-    blurred = apply_block_matrix_fast(blocks, table, level_maps)
-    amount = (0.5 * level_maps.float())[..., None, None, None]
-    sharp = torch.clamp((1.0 + amount) * blocks - amount * blurred, 0, 255)
-    out = combine_blocks(torch.where(amount > 0, sharp, blocks))
-    if not frames.dtype.is_floating_point:
-        out = torch.clamp(torch.round(out), 0, 255)
-    return out.to(frames.dtype)
+    amount = 0.5 * np.arange(table.shape[0], dtype=np.float32)
+    return apply_table_to_frames(frames, table, level_maps, block_size, amount=amount)

@@ -183,18 +183,28 @@ def test_cpu_path_launches_no_kernel(rng):
 
 @pytest.mark.parametrize("b,c", [(8, 3), (16, 3), (8, 1)])
 def test_group_size_fits_shared_memory(b, c):
-    """The kernel's per-CTA tile (table + X + Y + levels) stays within the
-    48 KB a launch may take without opting in to more."""
+    """The kernel's per-CTA memory in block layout (padded table, amounts,
+    scratch, two sets of levels, two input tiles and one output tile) stays
+    within the budget that lets two CTAs share an SM, under the 227 KB one
+    CTA may opt in to."""
     for ell in (1, 4, 11, 16):
         g = tbt._group_size(b, c, ell)
         assert g >= 1
-        assert (ell * b * b + 2 * g * b * b * c) * 4 + 4 * g <= 48 * 1024
+        rows, pitch = g * b, tbt._pitch_bytes(b * c * 4)
+        assert pitch >= b * c * 4 and pitch % 16 == 0
+        smem = (ell * (b * b + 4) + 16 + tbt._threads(b) * (b + 1) * c + 2 * ((g + 3) & ~3)) * 4 \
+            + 3 * rows * pitch
+        assert smem == tbt._transform_smem_bytes(b, c, ell, g)
+        assert smem <= tbt._SMEM_BUDGET <= tbt._SMEM_LIMIT == 227 * 1024
 
 
 @pytest.mark.parametrize("b,c", [(8, 1), (8, 3), (8, 4), (16, 1), (16, 3), (16, 4)])
 def test_batched_group_size_fits_shared_memory(b, c):
-    """The batched kernel's per-CTA tile (padded table + one tile of blocks)
-    stays within the 48 KB a launch may take without opting in to more."""
-    g = tbt._batched_group_size(b, c)
-    assert g >= 1
-    assert (16 * (b * b + 4) + g * b * b * c) * 4 <= 48 * 1024
+    """The batched kernel's per-CTA memory (padded table, the sub-warps'
+    scratch and one tile of blocks) stays within the 48 KB a launch may
+    take without opting in to more, at every table length."""
+    for ell in (1, 5, 11, 16):
+        g = tbt._batched_group_size(b, c, ell)
+        assert g >= 1
+        assert (ell * (b * b + 4) + tbt._threads(b) * (b + 1) + g * b * b * c) * 4 <= 48 * 1024
+    assert tbt._batched_group_size(b, c) == tbt._batched_group_size(b, c, 16)

@@ -1,4 +1,5 @@
-"""Card-only checks of the port's two CUDA kernels (marker ``gpu``).
+"""Card-only checks of the port's two CUDA kernels (marker ``gpu``): the
+transform kernel in its block and frame layouts, and the batched kernel.
 
 They skip where no CUDA device is present. This file imports no JAX, so
 on a machine with a card and no JAX it runs without the repo's conftest:
@@ -7,7 +8,9 @@ on a machine with a card and no JAX it runs without the repo's conftest:
 
 Tolerance: the kernel and the plain version both compute in float32
 without TF32 and differ only in summation order, so ``atol=1e-3`` on 0-255
-data (the JAX package's kernel tolerance).
+data (the JAX package's kernel tolerance). uint8 frames may differ by
+1 LSB where a value lands within that distance of a .5 tie; on random data
+that is rare, and the tests bound the share of such pixels.
 """
 
 import numpy as np
@@ -193,3 +196,209 @@ def test_blur_branch_on_card_matches_cpu():
     l_cpu = restore_downsample_lanczos(blurred.cpu(), r_cpu.clamp(max=3), 8)
     assert (sharp.cpu().int() - s_cpu.int()).abs().max().item() <= 1
     assert (lanczos.cpu().int() - l_cpu.int()).abs().max().item() <= 1
+
+
+def _frames(rng, shape, dtype, dev):
+    """Random frames; uint8 ones in steps that make exact .5 ties common
+    under the dyadic resample weights."""
+    x = rng.integers(0, 256, shape)
+    if dtype == torch.uint8:
+        return torch.as_tensor(x.astype(np.uint8), device=dev)
+    return torch.as_tensor((x + rng.random(shape)).astype(np.float32), device=dev)
+
+
+def _hold_frames(got, want):
+    """float32: ATOL; uint8: at most 1 LSB, on at most 0.1% of the pixels."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.uint8:
+        diff = (got.cpu().int() - want.cpu().int()).abs()
+        assert diff.max().item() <= 1
+        assert (diff > 0).float().mean().item() <= 1e-3
+    else:
+        assert (got.cpu() - want.cpu()).abs().max().item() <= ATOL
+
+
+# (H, W): 96 x 3 = 288 and 48 x 4 are multiples of 16 bytes as uint8, 40 x 3
+# and 40 x 1 are not (the scalar path); as float32 every row is
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("with_amount", [False, True])
+@pytest.mark.parametrize("b,h,w,c", [(8, 32, 96, 3), (8, 48, 40, 3), (8, 32, 48, 4),
+                                      (8, 48, 40, 1), (16, 32, 96, 3), (16, 48, 80, 1),
+                                      (16, 32, 48, 4), (8, 16, 24, 2)])
+def test_frame_kernel_matches_plain(dtype, with_amount, b, h, w, c):
+    from elvis_tpu_torch.kernels import block_transform as bt
+
+    dev = _cuda()
+    table = _table(bt, b, "unsharp" if with_amount else "resample")
+    ell = table.shape[0]
+    amount = 0.5 * np.arange(ell, dtype=np.float32) if with_amount else None
+    rng = np.random.default_rng(b + h + w + c)
+    frames = _frames(rng, (3, h, w, c), dtype, dev)
+    levels = torch.as_tensor(rng.integers(0, ell, (3, h // b, w // b)).astype(np.int32),
+                             device=dev)
+    before = bt.LAUNCHES["block_transform"]
+    got = bt.apply_table_to_frames(frames, table, levels, b, amount=amount)
+    torch.cuda.synchronize()
+    assert bt.LAUNCHES["block_transform"] == before + 1
+    want = bt.apply_table_to_frames(frames.cpu(), table, levels.cpu(), b, amount=amount)
+    _hold_frames(got, want)
+    if with_amount:  # level-0 blocks come back bit-exact
+        keep = (levels == 0).repeat_interleave(b, -1).repeat_interleave(b, -2)[..., None]
+        assert bool(keep.any())
+        assert torch.equal(torch.where(keep, got, 0), torch.where(keep, frames, 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("group,max_ctas", [(None, 7), (4, 5), (3, 0), (1, 3), (100, 0)])
+def test_frame_kernel_tiles_and_ctas(dtype, group, max_ctas):
+    """Tile counts that do not divide the CTA count, short last tiles, a
+    group that breaks the 16-byte alignment (3 x 24 bytes) and one larger
+    than the block row."""
+    from elvis_tpu_torch.kernels import block_transform as bt
+
+    dev = _cuda()
+    table = bt.blur_matrix_table(8, 10)
+    rng = np.random.default_rng(11)
+    frames = _frames(rng, (3, 40, 176, 3), dtype, dev)  # 15 block rows of 22 blocks
+    levels = torch.as_tensor(rng.integers(0, 11, (3, 5, 22)).astype(np.int32), device=dev)
+    got = bt._launch_transform(frames, bt.device_table(table, dev), levels, None, dtype,
+                               frame=True, b=8, group=group, max_ctas=max_ctas)
+    torch.cuda.synchronize()
+    _hold_frames(got, bt.apply_table_to_frames(frames.cpu(), table, levels.cpu(), 8))
+
+
+@pytest.mark.gpu
+def test_frame_kernel_uint8_ties_round_half_to_even():
+    """Flat blocks of odd values through the level-1 resample (2 x 2 area
+    means of equal values: exact) and pairs (v, v + 1) along x: every mean is
+    an exact .5 tie, and the kernel rounds it as torch.round does."""
+    from elvis_tpu_torch.kernels import block_transform as bt
+
+    dev = _cuda()
+    table = bt.resample_matrix_table(8, "linear")
+    v = torch.arange(0, 240, dtype=torch.uint8)
+    row = torch.stack([v, v + 1], dim=1).reshape(-1)[:96]  # 96 = 12 blocks
+    frames = row.view(1, 1, 96, 1).expand(2, 16, 96, 3).contiguous().to(dev)
+    levels = torch.ones((2, 2, 12), dtype=torch.int32, device=dev)
+    got = bt.apply_table_to_frames(frames, table, levels, 8)
+    want = bt.apply_table_to_frames(frames.cpu(), table, levels.cpu(), 8)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_frame_kernel_wraps_then_clamps_out_of_range_levels():
+    from elvis_tpu_torch.kernels import block_transform as bt
+
+    dev = _cuda()
+    table = bt.blur_matrix_table(8, 10)
+    ell = table.shape[0]
+    odd = torch.tensor([-1, -ell - 1, ell, ell + 5, 0, ell - 1], dtype=torch.int32, device=dev)
+    same = torch.tensor([ell - 1, 0, ell - 1, ell - 1, 0, ell - 1], dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(5)
+    frames = _frames(rng, (2, 8, 24, 3), torch.float32, dev)
+    got = bt.apply_table_to_frames(frames, table, odd.view(2, 1, 3), 8)
+    assert torch.equal(got, bt.apply_table_to_frames(frames, table, same.view(2, 1, 3), 8))
+    want = bt.apply_table_to_frames(frames.cpu(), table, odd.cpu().view(2, 1, 3), 8)
+    assert (got.cpu() - want).abs().max().item() <= ATOL
+
+
+@pytest.mark.gpu
+def test_frame_wrapper_rejects_bad_input():
+    from elvis_tpu_torch.kernels import block_transform as bt
+
+    dev = _cuda()
+    t = bt.device_table(bt.resample_matrix_table(8, "linear"), dev)
+    frames = torch.zeros((2, 16, 32, 3), dtype=torch.uint8, device=dev)
+    levels = torch.zeros((2, 2, 4), dtype=torch.int32, device=dev)
+    before = bt.LAUNCHES["block_transform"]
+    with pytest.raises(TypeError):
+        bt.apply_table_to_frames_cuda(frames.to(torch.int16), t, levels, 8)
+    with pytest.raises(TypeError):
+        bt.apply_table_to_frames_cuda(frames.double(), t, levels, 8)
+    with pytest.raises(TypeError):
+        bt.apply_table_to_frames_cuda(frames, t, levels.long(), 8)
+    with pytest.raises(TypeError):  # float32 frames do not come back as uint8
+        bt.apply_table_to_frames_cuda(frames.float(), t, levels, 8, out_dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        bt.apply_table_to_frames_cuda(frames.cpu(), t.cpu(), levels.cpu(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        bt.apply_table_to_frames_cuda(frames.transpose(1, 2), t, levels, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        bt.apply_table_to_frames_cuda(frames[:, :, ::2], t, levels[:, :, ::2], 8)
+    with pytest.raises(ValueError, match="not divisible"):
+        bt.apply_table_to_frames_cuda(frames[:, :12].contiguous(), t, levels, 8)
+    with pytest.raises(ValueError, match="not divisible"):
+        bt.apply_table_to_frames_cuda(frames[:, :, :28].contiguous(), t, levels, 8)
+    with pytest.raises(ValueError, match="levels must be"):
+        bt.apply_table_to_frames_cuda(frames, t, levels[:, :1].contiguous(), 8)
+    with pytest.raises(ValueError, match="amount"):
+        bt.apply_table_to_frames_cuda(frames, t, levels, 8,
+                                      amount=torch.zeros(3, device=dev))
+    assert bt.LAUNCHES["block_transform"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_fast_takes_a_split_view_by_its_strides(dtype):
+    """apply_block_matrix_fast on the split view of contiguous frames: one
+    launch in frame layout, float32 out, no copy into block layout; the
+    backward matches autograd of the plain version."""
+    from elvis_tpu_torch.core.blocks import combine_blocks, split_into_blocks
+    from elvis_tpu_torch.kernels import block_transform as bt
+
+    dev = _cuda()
+    table = bt.blur_matrix_table(8, 10)
+    rng = np.random.default_rng(2)
+    frames = _frames(rng, (2, 24, 48, 3), dtype, dev)
+    idx = torch.as_tensor(rng.integers(0, 11, (2, 3, 6)).astype(np.int32), device=dev)
+    blocks = split_into_blocks(frames, 8)
+    assert bt._frames_of(blocks) is not None and bt._frames_of(blocks.contiguous()) is None
+    before = bt.LAUNCHES["block_transform"]
+    got = bt.apply_block_matrix_fast(blocks, table, idx)
+    assert bt.LAUNCHES["block_transform"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == blocks.shape
+    want = bt.apply_block_matrix(blocks, bt.device_table(table, dev), idx)
+    assert (got - want).abs().max().item() <= ATOL
+    assert combine_blocks(got).is_contiguous()
+    if dtype == torch.float32:
+        x = frames.clone().requires_grad_(True)
+        (bt.apply_block_matrix_fast(split_into_blocks(x, 8), table, idx) ** 2).sum().backward()
+        xr = frames.clone().requires_grad_(True)
+        (bt.apply_block_matrix(split_into_blocks(xr, 8), bt.device_table(table, dev), idx)
+         ** 2).sum().backward()
+        torch.testing.assert_close(x.grad, xr.grad, rtol=1e-3, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_stages_launch_once_and_upload_each_table_once():
+    from elvis_tpu_torch.degrade import (adaptive_blur, adaptive_downsample,
+                                         adaptive_downsample_scale)
+    from elvis_tpu_torch.kernels import block_transform as bt
+    from elvis_tpu_torch.restore import (restore_blur_unsharp, restore_downsample_lanczos,
+                                         restore_downsample_scale_lanczos)
+
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor((rng.random((2, 48, 64, 3)) * 255).astype(np.uint8), device=dev)
+    scores = torch.as_tensor(rng.random((2, 6, 8)).astype(np.float32), device=dev)
+
+    def run():
+        counts = []
+        for fn in (lambda: adaptive_downsample(frames, scores, 8)[0],
+                   lambda: adaptive_downsample_scale(frames, scores, 8)[0],
+                   lambda: adaptive_blur(frames, scores, 8)[0],
+                   lambda: restore_downsample_lanczos(frames, (scores * 3).int(), 8),
+                   lambda: restore_downsample_scale_lanczos(frames, (scores * 4).int(), 8),
+                   lambda: restore_blur_unsharp(frames, (scores * 10).int(), 8)):
+            before = bt.LAUNCHES["block_transform"]
+            out = fn()
+            counts.append(bt.LAUNCHES["block_transform"] - before)
+            assert out.dtype == torch.uint8 and out.shape == frames.shape
+        return counts
+
+    assert run() == [1] * 6
+    uploads = sum(bt.TABLE_UPLOADS.values())
+    assert run() == [1] * 6
+    assert sum(bt.TABLE_UPLOADS.values()) == uploads
