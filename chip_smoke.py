@@ -32,11 +32,29 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
      path produced through the first kernel; then the blur slice on a small
      crop on the card and on the CPU.
 
-``python3 chip_smoke.py --profile`` adds, before the kernel table, a
+  5. the main path through the NVC codec at full width, as the pipeline's
+     downsample branch runs it: scores -> ``adaptive_downsample`` (the
+     transform kernel) -> ``make_pipeline_codec("nvc")`` ``.encode`` at the
+     target bitrate (two-pass rate targeting, gop 30) -> ``.decode`` -> the
+     strength maps through the npz and the video sidecar and back ->
+     ``progressive_restore`` with the maps read back -> masked PSNR / SSIM
+     and the row's bits; the baseline row (the original clip at the same
+     target); one encode and decode at fixed QP timed stage by stage (device
+     half by CUDA events, host half by the host's clock, intra and P frames
+     apart) and the hot spots of the device half each alone; then the
+     codec's checks: the range coder built here wrote every section, the
+     bit model and the Qstep table are the same numbers on the card and on
+     the CPU, an encode repeats byte for byte, the chunked encode equals the
+     single loop, and a crop's streams decode on the card and on the CPU
+     within 1 LSB.
+
+``python3 chip_smoke.py --codec-only`` runs phase 5 alone (no kernel table,
+no ``ok`` line). ``python3 chip_smoke.py --profile`` adds, before phase 5, a
 ``torch.profiler`` breakdown of one steady call of the two neural
 restorers (device time by kernel name, device busy share) and of each of
 the four transform stages, where it checks that no full-clip pass runs
-beside the transform kernel.
+beside the transform kernel; and, in phase 5, of the codec's four hot spots
+(launch count and device busy share of each).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -687,6 +705,392 @@ def phase_blur_path(main):
     return launches
 
 
+class Stopwatch:
+    """Times of named stretches: ``dev`` by CUDA events (the device's time
+    from the first kernel enqueued in the stretch to the last one finished),
+    ``wall`` by the host's clock with a synchronise at both ends."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def run(self, name, fn):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        self.ms[name] = {"wall": (time.perf_counter() - t0) * 1e3,
+                         "dev": start.elapsed_time(end)}
+        return out
+
+
+def phase_codec(main, profile=False):
+    """The main path through the NVC codec at full width: scores -> adaptive
+    downsample -> encode at the target bitrate -> decode -> strength-map
+    sidecars out and in -> progressive restore with the maps read back ->
+    masked PSNR / SSIM and the row's bits; the baseline row; then the
+    per-stage timing table at fixed QP (``codec_timing_table``) and the
+    codec's own checks (``codec_checks``). Returns the path's kernel
+    launches."""
+    import tempfile
+
+    import numpy as np
+
+    from elvis_tpu_torch.codec import calculate_target_bitrate
+    from elvis_tpu_torch.codec import sidecar
+    from elvis_tpu_torch.codec.dispatch import make_pipeline_codec
+    from elvis_tpu_torch.codec.nvc import codec as nvc
+    from elvis_tpu_torch.codec.nvc import entropy, transform
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.kernels import LAUNCHES
+    from elvis_tpu_torch.metrics import masked_psnr, masked_ssim
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+
+    dev = torch.device("cuda")
+    cfg = ElvisConfig()
+    frames, fg = main["frames"], main["fg"]
+    fps, gop = 30.0, 30
+
+    # the range coder, built from the checkout's source by the host compiler
+    t0 = time.time()
+    check(entropy.native_available(), "the native range coder did not build")
+    built = entropy.BUILD_SECONDS
+    print(f"[codec] range coder {entropy._lib_path().name}: "
+          + (f"built by g++ in {built:.1f} s" if built is not None else "found built")
+          + f", loaded in {time.time() - t0:.1f} s")
+
+    # the two pinned numbers, card against CPU: exact
+    mags = torch.arange(0, 32768, dtype=torch.float32)
+    model = np.where(np.arange(32768) > 0,
+                     2.0 * np.ceil(np.log2(np.arange(32768, dtype=np.float64) + 1.0)) + 2.0, 0.05)
+    bits_card = transform._level_bits(mags.to(dev)).cpu()
+    check(torch.equal(bits_card, transform._level_bits(mags)),
+          "the bit model differs between the card and the CPU")
+    check(np.array_equal(bits_card.numpy(), model.astype(np.float32)),
+          "the bit model is not 2*ceil(log2(l+1))+2 on the card")
+    log2_card = torch.where(mags > 0, 2.0 * torch.ceil(torch.log2(mags.to(dev) + 1.0).cpu()) + 2.0,
+                            0.05)
+    qps = torch.arange(52)
+    check(torch.equal(transform.qstep_from_qp(qps.to(dev)).cpu(), transform.qstep_from_qp(qps)),
+          "the Qstep table differs between the card and the CPU")
+    exp2_card = torch.exp2((qps.to(dev).float() - 4.0) / 6.0).cpu()
+    print(f"[codec] bit model at levels 0..32767 and Qstep at QP 0..51: card = CPU exactly; "
+          f"the card's own log2 would move {int((log2_card != bits_card).sum())} levels, its "
+          f"exp2 differs from the table at {int((exp2_card != transform.qstep_from_qp(qps)).sum())}"
+          f" of 52 QPs")
+
+    target = cfg.target_bitrate_override or calculate_target_bitrate(W, H, fps,
+                                                                     cfg.quality_factor)
+    codec = make_pipeline_codec(cfg.codec, "", W, H, quality=cfg.quality_preset,
+                                nvc_b_frames=cfg.nvc_b_frames, nvc_me_radius=cfg.nvc_me_radius,
+                                nvc_multi_ref=cfg.nvc_multi_ref, nvc_deblock=cfg.nvc_deblock,
+                                nvc_intra_pred=cfg.nvc_intra_pred, device=dev)
+    restore, prov = resolve_sr_backend(cfg.sr_backends[0], cfg, device=dev)
+    enc_kw = dict(target_bitrate=target, framerate=fps, gop=gop)
+    duration = N / fps
+
+    # every full encode the rate targeting makes goes through nvc.encode
+    full_encodes = []
+    plain_encode = nvc.encode
+
+    def counting_encode(frames_, **kw):
+        full_encodes.append(kw.get("qp"))
+        return plain_encode(frames_, **kw)
+
+    def all_native(stream, what):
+        backends = nvc.section_backends(stream)
+        check(all(b == entropy.BACKEND_NATIVE for b in backends),
+              f"{what}: a section was not written by the native range coder: {backends}")
+        return len(backends)
+
+    sw = Stopwatch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nvc.encode = counting_encode
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            LAUNCHES.clear()
+            scores, _ = sw.run("scoring", lambda: score(frames, cfg))
+            degraded, levels = sw.run("adaptive_downsample",
+                                      lambda: adaptive_downsample(frames, scores, B))
+            stream = sw.run("encode", lambda: codec.encode(degraded, **enc_kw))
+            row_encodes = list(full_encodes)
+            decoded = sw.run("decode", lambda: codec.decode(stream))
+            levels_np = levels.cpu().numpy()
+            npz_path, nvsv_path = f"{tmp}/downsample_maps.npz", f"{tmp}/downsample_maps.nvsv"
+            npz_size = sw.run("sidecar_npz_out", lambda: sidecar.save_strength_maps_npz(
+                levels_np, npz_path))
+            maps_npz = sw.run("sidecar_npz_in", lambda: sidecar.load_strength_maps_npz(npz_path))
+            nvsv_size = sw.run("sidecar_video_out", lambda: sidecar.save_strength_maps_video(
+                levels_np, nvsv_path, framerate=fps,
+                target_bitrate=cfg.strength_maps_target_bitrate, device=dev))
+            maps_video = sw.run("sidecar_video_in",
+                                lambda: sidecar.load_strength_maps_video(nvsv_path, device=dev))
+            with open(nvsv_path, "rb") as f:
+                sidecar_stream = f.read()[12:]
+            use_npz = cfg.strength_maps_use_npz
+            maps_back = torch.as_tensor((maps_npz if use_npz else maps_video).astype(np.int32),
+                                        device=dev)
+            restored = sw.run("progressive_restore", lambda: restore(decoded, maps_back, B))
+            metrics = sw.run("metrics", lambda: {
+                "decoded": (masked_psnr(frames, decoded), masked_psnr(frames, decoded, fg),
+                            masked_ssim(frames, decoded)),
+                "restored": (masked_psnr(frames, restored), masked_psnr(frames, restored, fg),
+                             masked_ssim(frames, restored)),
+                "degraded_undecoded": (masked_psnr(frames, degraded),),
+            })
+            launches = dict(LAUNCHES)
+        peak_path = torch.cuda.max_memory_allocated()
+
+        # the baseline row: the original clip through the codec at the same target
+        full_encodes.clear()
+        base_stream = sw.run("baseline_encode", lambda: codec.encode(frames, **enc_kw))
+        base_encodes = list(full_encodes)
+        base_decoded = sw.run("baseline_decode", lambda: codec.decode(base_stream))
+    finally:
+        nvc.encode = plain_encode
+    base_metrics = (masked_psnr(frames, base_decoded), masked_psnr(frames, base_decoded, fg),
+                    masked_ssim(frames, base_decoded))
+
+    check(launches.get("block_transform", 0) == 1,
+          f"the codec path launches block_transform once (adaptive_downsample): {launches}")
+    print(f"[codec] kernel launches on the codec path: {json.dumps(launches)}")
+    sections = all_native(stream, "the PRESLEY stream") + all_native(base_stream, "the baseline") \
+        + all_native(sidecar_stream, "the video sidecar")
+    print(f"[codec] all {sections} sections of the three streams made here were written by the "
+          f"native range coder")
+    check(decoded.shape == frames.shape and decoded.dtype == torch.uint8 and decoded.is_cuda,
+          f"decoded {tuple(decoded.shape)} {decoded.dtype} {decoded.device}")
+    check(restored.shape == frames.shape and restored.dtype == torch.uint8, "restored shape")
+    check(np.array_equal(maps_npz, levels_np), "the npz sidecar did not bring the levels back")
+    video_equal = float((maps_video == levels_np).mean())
+    video_maxdiff = int(np.abs(maps_video.astype(int) - levels_np.astype(int)).max())
+    # the video sidecar is lossy by design: its share of equal levels is reported
+    check(maps_video.shape == levels_np.shape and maps_video.dtype == np.uint8,
+          f"the video sidecar came back as {maps_video.shape} {maps_video.dtype}")
+    info, base_info = codec._codec.probe(stream), codec._codec.probe(base_stream)
+    check((info.width, info.height, info.num_frames) == (W, H, N), f"header {info}")
+    sidecar_size = npz_size if use_npz else nvsv_size
+    row_bits = (len(stream) + sidecar_size) * 8
+    base_bits = len(base_stream) * 8
+    summary = {
+        "frames": N, "height": H, "width": W, "gop": gop, "target_bitrate": target,
+        "presley": {
+            "stream_bytes": len(stream), "qp": info.base_qp, "full_encodes": row_encodes,
+            "sidecar": "npz" if use_npz else "video", "sidecar_npz_bytes": npz_size,
+            "sidecar_video_bytes": nvsv_size, "sidecar_video_levels_equal": video_equal,
+            "bits": row_bits, "bitrate": row_bits / duration,
+        },
+        "baseline": {"stream_bytes": len(base_stream), "qp": base_info.base_qp,
+                     "full_encodes": base_encodes, "bits": base_bits,
+                     "bitrate": base_bits / duration},
+        "stage_ms": sw.ms, "max_memory_allocated_bytes": peak_path, "provenance": prov,
+    }
+    for name, vals in {**metrics, "baseline": base_metrics}.items():
+        for key, v in zip(("psnr_%s_db", "psnr_%s_fg_db", "ssim_%s"), vals):
+            check(bool(torch.isfinite(v).all()), f"{name} metric not finite: {v.tolist()}")
+            summary[key % name] = v.mean().item()
+    print(f"[codec] target {target} bit/s = {target * duration / 8:.0f} bytes for {N} frames at "
+          f"{fps:g} fps, gop {gop}")
+    print(f"[codec] PRESLEY row: QP {info.base_qp} after full encodes at QP {row_encodes}; stream "
+          f"{len(stream)} bytes + sidecar {sidecar_size} ({summary['presley']['sidecar']}; npz "
+          f"{npz_size}, video {nvsv_size} with {video_equal:.2%} of levels equal, max difference "
+          f"{video_maxdiff}) = {row_bits} bits = {row_bits / duration:.0f} bit/s")
+    print(f"[codec] PRESLEY row PSNR all / fg (dB), SSIM: degraded before the codec "
+          f"{summary['psnr_degraded_undecoded_db']:.4f}; decoded {summary['psnr_decoded_db']:.4f} "
+          f"/ {summary['psnr_decoded_fg_db']:.4f}, {summary['ssim_decoded']:.5f}; restored "
+          f"{summary['psnr_restored_db']:.4f} / {summary['psnr_restored_fg_db']:.4f}, "
+          f"{summary['ssim_restored']:.5f}")
+    print(f"[codec] baseline row: QP {base_info.base_qp} after full encodes at QP {base_encodes}; "
+          f"{len(base_stream)} bytes = {base_bits} bits = {base_bits / duration:.0f} bit/s; PSNR "
+          f"{summary['psnr_baseline_db']:.4f} / {summary['psnr_baseline_fg_db']:.4f} dB, SSIM "
+          f"{summary['ssim_baseline']:.5f}")
+    print("[codec] path stages, ms (wall with a synchronise at both ends / CUDA events): "
+          + "; ".join(f"{k} {v['wall']:.1f} / {v['dev']:.1f}" for k, v in sw.ms.items()))
+    print(f"[codec] max_memory_allocated over the path {peak_path} bytes")
+    check(summary["psnr_decoded_db"] > 25.0 and summary["psnr_baseline_db"] > 25.0,
+          "a decoded row is below 25 dB: the codec is broken")
+    check(summary["psnr_restored_db"] > summary["psnr_decoded_db"] - 1.0,
+          "restore made the decoded clip much worse")
+    for what, size, q in (("PRESLEY", len(stream), info.base_qp),
+                          ("baseline", len(base_stream), base_info.base_qp)):
+        # at QP 0 or 51 the rate model has run out of QPs, not failed
+        check(q in (0, 51) or 0.5 <= size * 8 / (target * duration) <= 1.5,
+              f"{what} stream of {size} bytes at QP {q} misses the target by more than half")
+
+    fixed = codec_timing_table(frames, cfg, fps, gop, profile)
+    codec_checks(frames, cfg, fps, gop, *fixed)
+    print(f"[codec] summary {json.dumps(summary)}")
+    return launches
+
+
+def codec_timing_table(frames, cfg, fps, gop, profile=False, qp=32):
+    """One encode and one decode of the clip at fixed QP, stage by stage: the
+    device half by CUDA events, the host half by the host's clock, an intra
+    frame alone, bytes each way, peak memory; then the hot spots of the
+    device half on one luma plane, each alone. Returns the QP, the stream
+    and the decoded frames."""
+    import numpy as np
+
+    from elvis_tpu_torch.codec.nvc import codec as nvc
+    from elvis_tpu_torch.codec.nvc import transform
+    from elvis_tpu_torch.ops.color import yuv420_to_rgb
+
+    dev = frames.device
+    pad = nvc._pad_to(frames, nvc._PAD)
+    hp, wp = pad.shape[1:3]
+    qp_y = nvc._qp_maps(N, hp // 8, wp // 8, qp, None)
+    qp_c = nvc._chroma_qp(qp_y)
+    qy, qc = torch.as_tensor(qp_y, device=dev), torch.as_tensor(qp_c, device=dev)
+    flags = dict(multi_ref=cfg.nvc_multi_ref, deblock=cfg.nvc_deblock,
+                 intra_pred=cfg.nvc_intra_pred)
+    radius = cfg.nvc_me_radius
+    tw = Stopwatch()
+    nvc._encode_planes(pad[:2], qy[:2], qc[:2], gop, radius, 1, True, **flags)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    planes_dev, _ = tw.run("encode device: colour + 3 x encode_plane", lambda: nvc._encode_planes(
+        pad, qy, qc, gop, radius, 1, True, **flags))
+    peak_enc = torch.cuda.max_memory_allocated()
+    tw.run("encode device, intra frame alone", lambda: nvc._encode_planes(
+        pad[:1], qy[:1], qc[:1], gop, radius, 1, True, **flags))
+    planes = tw.run("encode host: levels, modes, vectors to the host", lambda: nvc._to_host(
+        planes_dev))
+    down_bytes = sum(a.nbytes for plane in planes for a in plane)
+    stream_q = tw.run("encode host: zigzag + DPCM + range coder", lambda: nvc.write_stream(
+        planes, width=W, height=H, qp=qp, framerate=fps, gop=gop, deblock=cfg.nvc_deblock))
+    parsed = tw.run("decode host: parse + range decoder + un-zigzag",
+                    lambda: nvc.read_stream(stream_q))
+    _, qp_y2, planes2 = parsed
+    for a, b in zip(planes, planes2):
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+              "the stream did not bring the levels, modes and vectors back")
+    sizes = ((hp, wp), (hp // 2, wp // 2), (hp // 2, wp // 2))
+    qps3 = (qp_y2, nvc._chroma_qp(qp_y2), nvc._chroma_qp(qp_y2))
+    up_bytes = sum(a.nbytes for plane in planes2 for a in plane) + sum(q.nbytes for q in qps3)
+
+    def decode_dev(k):
+        recons = nvc._decode_planes([tuple(a[:k] for a in pl) for pl in planes2],
+                                    [q[:k] for q in qps3], sizes, dev, bfr=0,
+                                    deblock=cfg.nvc_deblock)
+        return torch.clamp(torch.round(yuv420_to_rgb(*recons)), 0, 255).to(torch.uint8)[:, :H, :W]
+
+    decode_dev(2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rgb_q = tw.run("decode device: upload + 3 x decode_plane + colour", lambda: decode_dev(N))
+    peak_dec = torch.cuda.max_memory_allocated()
+    tw.run("decode device, intra frame alone", lambda: decode_dev(1))
+    ms = tw.ms
+    e_dev, e_i = ms["encode device: colour + 3 x encode_plane"], \
+        ms["encode device, intra frame alone"]
+    d_dev, d_i = ms["decode device: upload + 3 x decode_plane + colour"], \
+        ms["decode device, intra frame alone"]
+    e_host = ms["encode host: levels, modes, vectors to the host"]["wall"] \
+        + ms["encode host: zigzag + DPCM + range coder"]["wall"]
+    d_host = ms["decode host: parse + range decoder + un-zigzag"]["wall"]
+    e_total, d_total = e_dev["wall"] + e_host, d_dev["wall"] + d_host
+    print(f"[codec-timing] fixed QP {qp}, {N} frames {W}x{H}, gop {gop} (1 intra + {N - 1} P), "
+          f"stream {len(stream_q)} bytes; ms as wall / CUDA events:")
+    for k, v in ms.items():
+        print(f"[codec-timing]   {k}: {v['wall']:.1f} / {v['dev']:.1f}")
+    print(f"[codec-timing] encode {e_total:.1f} ms = {e_total / N:.1f} ms a frame, host part "
+          f"{e_host:.1f} ms ({e_host / e_total:.1%}); intra frame {e_i['wall']:.1f} ms, P frame "
+          f"{(e_dev['wall'] - e_i['wall']) / (N - 1):.1f} ms (device part, wall); "
+          f"{down_bytes} bytes to the host; peak memory {peak_enc} bytes")
+    print(f"[codec-timing] decode {d_total:.1f} ms = {d_total / N:.1f} ms a frame, host part "
+          f"{d_host:.1f} ms ({d_host / d_total:.1%}); intra frame {d_i['wall']:.1f} ms, P frame "
+          f"{(d_dev['wall'] - d_i['wall']) / (N - 1):.1f} ms (device part, wall); "
+          f"{up_bytes} bytes to the card; peak memory {peak_dec} bytes")
+
+    # hot spots of the device half, luma plane of one frame, each alone
+    y = pad[:2].float()
+    y = 0.299 * y[..., 0] + 0.587 * y[..., 1] + 0.114 * y[..., 2]
+    blocks, qs = transform._blocks_of(y[1]), transform.qstep_from_qp(qy[1])
+    mv_int = transform._motion_search(y[0], blocks, radius, 1)
+    spots = {
+        f"_intra_frame_encode ({hp // 8} block rows)":
+            lambda: transform._intra_frame_encode(blocks, qs),
+        "_intra_frame_decode": lambda: transform._intra_frame_decode(
+            blocks, torch.zeros_like(qs, dtype=torch.int8), qs),
+        f"_motion_search radius {radius} ({(2 * radius + 1) ** 2} shifts)":
+            lambda: transform._motion_search(y[0], blocks, radius, 1),
+        "_halfpel_refine (9 predictions)": lambda: transform._halfpel_refine(y[0], blocks, mv_int),
+        "_motion_predict": lambda: transform._motion_predict(y[0], mv_int * 2),
+        "block_dct2 + _quantize + _rd_cost": lambda: (lambda c: transform._rd_cost(
+            transform._quantize(c, qs), c, qs))(transform.block_dct2(blocks)),
+        "deblock_plane": lambda: transform.deblock_plane(y[0], qs),
+    }
+    hot = Stopwatch()
+    for label, fn in spots.items():
+        fn()
+        hot.run(label, fn)
+        print(f"[codec-timing] luma plane {wp}x{hp}, {label}: {hot.ms[label]['wall']:.2f} ms "
+              f"wall / {hot.ms[label]['dev']:.2f} ms CUDA events")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        for label in list(spots)[:4]:
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                spots[label]()
+                torch.cuda.synchronize()
+            rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            rows.sort(key=lambda r: -r[1])
+            busy, count = sum(r[1] for r in rows), sum(r[2] for r in rows)
+            check(busy > 0, f"torch.profiler saw no device time in {label}")
+            print(f"[profile] {label}: {count} device kernels busy {busy:.2f} ms = "
+                  f"{busy / hot.ms[label]['wall']:.1%} of its {hot.ms[label]['wall']:.2f} ms wall "
+                  f"with the profiler off")
+            for key, kms, kcount in rows[:5]:
+                print(f"[profile]   {kms:9.3f} ms  x{kcount:<5d} {key[:100]}")
+
+    return qp, stream_q, rgb_q
+
+
+def codec_checks(frames, cfg, fps, gop, qp, stream_q, rgb_q):
+    """The codec's own checks on the card: the staged decode is ``decode``,
+    an encode repeats byte for byte, the chunked encode equals the single
+    loop, and a crop's streams decode alike on the card and on the CPU."""
+    from elvis_tpu_torch.codec.nvc import codec as nvc
+    from elvis_tpu_torch.metrics import masked_psnr
+
+    dev = frames.device
+    flags = dict(me_radius=cfg.nvc_me_radius, multi_ref=cfg.nvc_multi_ref,
+                 deblock=cfg.nvc_deblock, intra_pred=cfg.nvc_intra_pred)
+    check(torch.equal(rgb_q, nvc.decode(stream_q, device=dev)[0]),
+          "the staged decode differs from decode()")
+    again = nvc.encode(frames, qp=qp, framerate=fps, gop=gop, **flags)
+    check(again == stream_q, "two encodes of the same clip on the card differ "
+                             f"({len(again)} and {len(stream_q)} bytes)")
+    check(torch.equal(nvc.decode(again, device=dev)[0], rgb_q), "two decodes differ")
+    chunked = nvc.encode(frames, qp=qp, framerate=fps, gop=gop, chunk_frames=4, **flags)
+    check(chunked == stream_q, "the chunked encode (4 frames a segment) differs from the "
+                               "single loop")
+    psnr_q = masked_psnr(frames, rgb_q).mean().item()
+    print(f"[codec] fixed QP {qp}: {len(stream_q)} bytes, PSNR {psnr_q:.4f} dB; the same encode "
+          f"twice: identical bytes and frames; chunked (4 frames a segment): identical bytes")
+    crop = frames[:2, :128, :192].contiguous()
+    s_card = nvc.encode(crop, qp=qp, framerate=fps, gop=gop)
+    s_cpu = nvc.encode(crop.cpu(), qp=qp, framerate=fps, gop=gop)
+    cc, ch = nvc.decode(s_card, device=dev)[0].cpu(), nvc.decode(s_card, device="cpu")[0]
+    hc = nvc.decode(s_cpu, device=dev)[0].cpu()
+    lsb = max((cc.int() - ch.int()).abs().max().item(),
+              (hc.int() - nvc.decode(s_cpu, device="cpu")[0].int()).abs().max().item())
+    check(lsb <= 1, f"a stream decodes {lsb} LSB apart on the card and on the CPU")
+    p_cc = masked_psnr(crop.cpu(), cc).mean().item()
+    p_hc = masked_psnr(crop.cpu(), nvc.decode(s_cpu, device="cpu")[0]).mean().item()
+    print(f"[reference] 2x128x192 crop at QP {qp}: card stream {len(s_card)} bytes, CPU stream "
+          f"{len(s_cpu)} bytes ({'identical' if s_card == s_cpu else 'not identical'}); either "
+          f"stream decoded on the card and on the CPU: max {lsb} LSB (tol 1); PSNR card-card "
+          f"{p_cc:.4f} dB, CPU-CPU {p_hc:.4f} dB")
+    check(abs(p_cc - p_hc) <= 0.05, "card and CPU encodes differ by more than 0.05 dB")
+
+
 def phase_profile(main):
     """Device time by kernel of one steady call of each neural restorer and
     of each transform stage. In a transform stage every device kernel but
@@ -763,11 +1167,20 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     name, count, _ = phase_device()
+    if "--codec-only" in sys.argv[1:]:  # while working on the codec: no ``ok`` line
+        from elvis_tpu_torch.pipeline import ElvisConfig
+
+        frames = make_clip(torch.device("cuda"))
+        phase_codec({"frames": frames, "fg": score(frames, ElvisConfig())[1]},
+                    "--profile" in sys.argv[1:])
+        return 0
     kernel_results, frame_rows = phase_kernels()
     launches_main, main_tensors = phase_main_path()
     launches_blur = phase_blur_path(main_tensors)
-    if "--profile" in sys.argv[1:]:
+    profile = "--profile" in sys.argv[1:]
+    if profile:
         phase_profile(main_tensors)
+    launches_codec = phase_codec(main_tensors, profile)
     # the transform kernel's headline row is what the paths launch: uint8
     # frames, b=8, the main path's table; the batched kernel's is the block
     # contract at the same table (b=8, L=4, M=259,200, C=3)
@@ -776,7 +1189,8 @@ def main() -> int:
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         rows = all_rows[kname]
-        by_path = {"main": launches_main.get(kname, 0), "blur": launches_blur.get(kname, 0)}
+        by_path = {"main": launches_main.get(kname, 0), "blur": launches_blur.get(kname, 0),
+                   "codec": launches_codec.get(kname, 0)}
         uint8_rows = [r for r in rows if r.get("uint8_pixels_differing") is not None]
         kernels.append({
             "name": kname,

@@ -25,6 +25,19 @@ both CUDA C++ for ``sm_90a`` and both the per-block transform
     ``elvis_tpu.kernels.block_transform.apply_block_matrix_pallas``.
 
 Both share their arithmetic, ``kernels/csrc/block_transform_core.cuh``.
+
+Subpackages, each the counterpart of the JAX package's of the same name:
+``core`` (block algebra), ``ops`` (resize, filters, colour incl. planar
+YUV 4:2:0, DCT and inverse DCT), ``kernels``, ``scoring``, ``degrade``,
+``models``, ``restore``, ``metrics``, ``pipeline`` (``ElvisConfig``) and
+``codec``: the NVC codec (``codec.nvc.transform``: ``encode_plane``,
+``decode_plane``, ``encode_plane_b``, ``decode_plane_b``;
+``codec.nvc.codec``: ``encode``, ``decode``, ``NvcCodec``;
+``codec.nvc.entropy``: the range coder, built from
+``codec/nvc/csrc/rangecoder.cpp`` by the host compiler at first use), the
+strength-map and removal-mask sidecars (``codec.sidecar``) and the
+pipeline's adapter (``codec.dispatch.make_pipeline_codec``). The codec's
+device half is stock PyTorch ops, as the JAX package's is XLA ops.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Block DCT as matrix multiplies (port of ``elvis_tpu.ops.dct``).
 
 A 2-D DCT of a b x b block is ``D @ X @ D.T`` with the orthonormal DCT-II
-matrix D, run in float32 with TF32 off (JAX runs it at ``HIGHEST``).
+matrix D, its inverse ``D.T @ C @ D``; both run in float32 with TF32 off
+(JAX runs them at ``HIGHEST``).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from elvis_tpu_torch.device import full_fp32
 
-__all__ = ["dct_matrix", "block_dct2"]
+__all__ = ["dct_matrix", "block_dct2", "block_idct2"]
 
 
 @functools.lru_cache(maxsize=16)
@@ -26,11 +27,27 @@ def dct_matrix(n: int) -> np.ndarray:
     return (d * np.sqrt(2.0 / n)).astype(np.float64)
 
 
+@functools.lru_cache(maxsize=16)
+def _dct_tensor(n: int, device: torch.device) -> torch.Tensor:
+    """The DCT matrix as a float32 tensor, uploaded once per device."""
+    return torch.as_tensor(dct_matrix(n), dtype=torch.float32, device=device)
+
+
 def block_dct2(blocks: torch.Tensor) -> torch.Tensor:
     """2-D DCT over the trailing two spatial axes of ``(..., b, b)``."""
     b = blocks.shape[-1]
-    d = torch.as_tensor(dct_matrix(b), dtype=torch.float32, device=blocks.device)
+    d = _dct_tensor(b, blocks.device)
     x = blocks.float()
     with full_fp32():
         y = torch.einsum("kb,...bc->...kc", d, x)
         return torch.einsum("lc,...kc->...kl", d, y)
+
+
+def block_idct2(coeffs: torch.Tensor) -> torch.Tensor:
+    """Inverse 2-D DCT (DCT-III with the orthonormal matrix transposed)."""
+    b = coeffs.shape[-1]
+    d = _dct_tensor(b, coeffs.device)
+    x = coeffs.float()
+    with full_fp32():
+        y = torch.einsum("kb,...kc->...bc", d, x)
+        return torch.einsum("cl,...bc->...bl", d, y)

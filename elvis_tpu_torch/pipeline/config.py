@@ -16,6 +16,9 @@ __all__ = ["ElvisConfig"]
 @dataclass
 class ElvisConfig:
     block_size: int = 8
+    # target bitrate = W*H*fps*0.01*quality_factor unless overridden (bps)
+    quality_factor: float = 1.2
+    target_bitrate_override: Optional[int] = None
     removability_alpha: float = 0.5
     removability_smoothing_beta: float = 0.5
     saliency_backend: str = "motion_contrast"
@@ -36,3 +39,16 @@ class ElvisConfig:
     generate_opencv_benchmarks: bool = True
     # frames per invocation of a deblur backend (None: by pixel budget)
     instantir_parallel_chunk_length: Optional[int] = None
+    # strength-map sidecar: npz (lossless) or a gray video at about
+    # strength_maps_target_bitrate (bps)
+    strength_maps_use_npz: bool = True
+    strength_maps_target_bitrate: int = 50000
+    codec: str = "nvc"                 # 'nvc' ('x265' | 'kvazaar' | 'svtav1' not ported yet)
+    quality_preset: str = "medium"     # QUALITY_PRESETS tier for kvazaar/svtav1
+    nvc_b_frames: bool = False         # NVC: bi-predicted odd frames
+    nvc_me_radius: int = 4             # NVC: per-frame motion budget in pels
+                                       # (>7 engages the hierarchical search)
+    nvc_multi_ref: bool = False        # NVC: two-reference P prediction
+    nvc_deblock: bool = True           # NVC: in-loop deblocking filter
+    nvc_intra_pred: bool = True        # NVC: spatial intra prediction on
+                                       # keyframes (DC/vert/gradient)

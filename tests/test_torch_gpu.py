@@ -1,5 +1,6 @@
-"""Card-only checks of the port's two CUDA kernels (marker ``gpu``): the
-transform kernel in its block and frame layouts, and the batched kernel.
+"""Card-only checks of the port (marker ``gpu``): its two CUDA kernels (the
+transform kernel in its block and frame layouts, and the batched kernel),
+and the NVC codec on the card against the CPU.
 
 They skip where no CUDA device is present. This file imports no JAX, so
 on a machine with a card and no JAX it runs without the repo's conftest:
@@ -402,3 +403,76 @@ def test_stages_launch_once_and_upload_each_table_once():
     uploads = sum(bt.TABLE_UPLOADS.values())
     assert run() == [1] * 6
     assert sum(bt.TABLE_UPLOADS.values()) == uploads
+
+
+def _codec_crop(n=3, h=64, w=96, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for t in range(n):
+        base = 128 + 60 * np.sin(2 * np.pi * (xx + 3 * t) / 32) + 40 * np.cos(2 * np.pi * yy / 24)
+        img = np.stack([base, np.roll(base, 3, axis=1), np.roll(base, -2, axis=0)], axis=-1)
+        frames.append(np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8))
+    return np.stack(frames)
+
+
+def _psnr_u8(a, b):
+    mse = ((a.double() - b.double()) ** 2).mean().item()
+    return 10 * np.log10(255.0 ** 2 / mse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", [dict(gop=2), dict(multi_ref=True), dict(b_frames=True),
+                                   dict(me_radius=12), dict(deblock=False, intra_pred=False)])
+def test_codec_stream_decodes_alike_on_card_and_cpu(flags):
+    """The same stream, made on either device, decodes on the card and on
+    the CPU to frames within 1 LSB; an encode on the card decoded on the CPU
+    has the PSNR of card-card within 0.01 dB."""
+    from elvis_tpu_torch.codec.nvc import codec as nvc
+
+    dev = _cuda()
+    frames = _codec_crop()
+    source = torch.from_numpy(frames)
+    for made_on in ("cuda", "cpu"):
+        stream = nvc.encode(frames, qp=28, device=made_on, **flags)
+        on_card, fps = nvc.decode(stream, device=dev)
+        on_cpu, _ = nvc.decode(stream, device="cpu")
+        assert on_card.is_cuda and on_card.dtype == torch.uint8 and fps == 30.0
+        assert (on_card.cpu().int() - on_cpu.int()).abs().max().item() <= 1
+        assert abs(_psnr_u8(source, on_card.cpu()) - _psnr_u8(source, on_cpu)) <= 0.01
+    # a tensor on the card encodes there without being asked
+    assert nvc.encode(source.to(dev), qp=28, **flags) == nvc.encode(frames, qp=28, device=dev,
+                                                                    **flags)
+
+
+@pytest.mark.gpu
+def test_codec_pinned_numbers_on_card():
+    """The Qstep table and the bit model are the same numbers on the card."""
+    from elvis_tpu_torch.codec.nvc import transform as tt
+
+    dev = _cuda()
+    qps = torch.arange(52)
+    assert torch.equal(tt.qstep_from_qp(qps.to(dev)).cpu(), tt.qstep_from_qp(qps))
+    mags = torch.arange(32768, dtype=torch.float32)
+    assert torch.equal(tt._level_bits(mags.to(dev)).cpu(), tt._level_bits(mags))
+
+
+@pytest.mark.gpu
+def test_codec_motion_prediction_is_bit_exact_on_card():
+    """Half-pel prediction is one pixel or the mean of two or four: with
+    TF32 off inside the package it is the same bits on the card, whatever
+    the global switch says."""
+    from elvis_tpu_torch.codec.nvc import transform as tt
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    prev = torch.from_numpy((rng.random((64, 96)) * 255).astype(np.float32))
+    mv2 = torch.from_numpy(rng.integers(-20, 21, (8, 12, 2)).astype(np.int32))
+    want = tt._motion_predict(prev, mv2, reach=2)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = tt._motion_predict(prev.to(dev), mv2.to(dev), reach=2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert torch.equal(got.cpu(), want)

@@ -1,6 +1,8 @@
 """Port parity: the whole first slice, scoring -> adaptive downsample ->
 progressive SR -> masked metrics, on ``tiny_video`` (elvis_tpu_torch
-against elvis_tpu, each side from its own scores, on the CPU).
+against elvis_tpu, each side from its own scores, on the CPU); and the same
+slice through the NVC codec and the strength-map sidecar, as the pipeline's
+downsample branch runs it.
 
 Tolerance: the restored clip's masked PSNR agrees with the JAX run within
 0.01 dB, per frame. The net is a narrow random-weight SRNetCompact in its
@@ -113,6 +115,67 @@ def test_slice_neural_psnr_matches_jax(rng, tiny_video):
     lanczos = _np(tprog.progressive_restore(torch.from_numpy(t["degraded"]),
                                             torch.from_numpy(t["levels"]), B))
     assert np.abs(lanczos.astype(int) - t["restored"].astype(int)).max() > 0
+
+
+def _codec_slice(video, up, side, tmp_path):
+    """score -> adaptive_downsample -> encode at a target -> decode ->
+    sidecar out and in -> progressive_restore with the maps read back ->
+    masked PSNR, in one package (``side``: "jax" or "torch")."""
+    target, fps, gop = 150_000, 30.0, 3
+    if side == "jax":
+        from elvis_tpu.codec import dispatch, sidecar
+        x = jnp.asarray(video)
+        cx = jcomplexity.spatial_temporal_complexity(x, B)
+        sal = jsaliency.motion_contrast_saliency(x)
+        scores = jfusion.removability_scores(cx.SC, cx.TC,
+                                             jsaliency.saliency_to_block_mask(sal, B))
+        degraded, levels = jadaptive.adaptive_downsample(x, scores, B)
+        codec = dispatch.make_pipeline_codec("nvc", str(tmp_path), 64, 48)
+        stream = codec.encode(_np(degraded), target_bitrate=target, framerate=fps, gop=gop)
+        decoded = jnp.asarray(codec.decode(stream))
+        as_maps, prog, pixel = (lambda m: jnp.asarray(m.astype(np.int32))), jprog, jpixel
+    else:
+        from elvis_tpu_torch.codec import dispatch, sidecar
+        x = torch.from_numpy(video)
+        cx = tcomplexity.spatial_temporal_complexity(x, B)
+        sal = tsaliency.motion_contrast_saliency(x)
+        scores = tfusion.removability_scores(cx.SC, cx.TC,
+                                             tsaliency.saliency_to_block_mask(sal, B))
+        degraded, levels = tadaptive.adaptive_downsample(x, scores, B)
+        codec = dispatch.make_pipeline_codec("nvc", str(tmp_path), 64, 48, device="cpu")
+        stream = codec.encode(degraded, target_bitrate=target, framerate=fps, gop=gop)
+        decoded = codec.decode(stream)
+        as_maps, prog, pixel = (lambda m: torch.from_numpy(m.astype(np.int32))), tprog, tpixel
+    path = str(tmp_path / f"{side}_maps.npz")
+    size = sidecar.save_strength_maps_npz(_np(levels), path)
+    maps = sidecar.load_strength_maps_npz(path)
+    restored = prog.progressive_restore(decoded, as_maps(maps), B, upsample_fn=up)
+    return {"levels": _np(levels), "maps": maps, "stream": stream, "sidecar_size": size,
+            "sidecar_blob": sidecar.encode_strength_maps(_np(levels)),
+            "decoded": _np(decoded), "restored": _np(restored),
+            "psnr_decoded": _np(pixel.masked_psnr(x, decoded)),
+            "psnr": _np(pixel.masked_psnr(x, restored))}
+
+
+def test_slice_through_the_codec_matches_jax(rng, tiny_video, tmp_path):
+    """Tolerances: restored PSNR within 0.05 dB per frame (the decoders
+    differ by 1 LSB on single pixels and the bf16 net on single roundings),
+    stream length within 2%, sidecar bytes equal."""
+    jup, tup = _narrow_net(rng)
+    j = _codec_slice(tiny_video, jup, "jax", tmp_path)
+    t = _codec_slice(tiny_video, tup, "torch", tmp_path)
+    np.testing.assert_array_equal(t["levels"], j["levels"])
+    np.testing.assert_array_equal(t["maps"], t["levels"])  # the sidecar brought them back
+    assert t["sidecar_size"] == j["sidecar_size"] and t["sidecar_blob"] == j["sidecar_blob"]
+    assert abs(len(t["stream"]) - len(j["stream"])) <= 0.02 * len(j["stream"])
+    from elvis_tpu_torch.codec.nvc.codec import NvcCodec
+    assert NvcCodec("cpu").probe(t["stream"]).base_qp != 32  # the rate model moved the QP
+    assert t["restored"].dtype == np.uint8 and t["restored"].shape == tiny_video.shape
+    np.testing.assert_allclose(t["psnr_decoded"], j["psnr_decoded"], atol=0.05)
+    np.testing.assert_allclose(t["psnr"], j["psnr"], atol=0.05)
+    assert t["psnr"].mean() > 25.0
+    print(f"stream {len(t['stream'])} and {len(j['stream'])} bytes; restored PSNR "
+          f"{t['psnr'].mean():.4f} and {j['psnr'].mean():.4f} dB")
 
 
 @pytest.mark.parametrize("name", ["progressive_lanczos", "no_checkpoints"])
