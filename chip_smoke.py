@@ -48,6 +48,18 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
      single loop, and a crop's streams decode on the card and on the CPU
      within 1 LSB.
 
+  6. the pipeline as users start it: ``run_elvis`` (what ``python -m
+     elvis_tpu_torch.cli`` runs) on an 8-frame 1080p synthetic clip with the
+     default config but ``inpaint_backends=["diffusion"]``: scoring, the
+     baseline, shrink (removal + motion hint), ROI, downsample and blur
+     encodes, the stretch and PDE fill, SR and deblur restores, the
+     classical rows, evaluation with LPIPS and FVMD, analysis_results.json.
+     It prints the stage times, each row's QP, bytes, bit/s and metrics and
+     the peak memory, checks the rows, the JSON and the sidecars, counts one
+     transform launch per degrade or classical stage, runs again on the same
+     directory (every encode and restore from the stage cache, the same
+     rows), and holds a 6-frame 96x64 run on the card to one on the CPU.
+
 ``python3 chip_smoke.py --codec-only`` runs phase 5 alone (no kernel table,
 no ``ok`` line). ``python3 chip_smoke.py --profile`` adds, before phase 5, a
 ``torch.profiler`` breakdown of one steady call of the two neural
@@ -1155,6 +1167,195 @@ def phase_profile(main):
                   f"back to back (CUDA events)")
 
 
+PIPELINE_ROWS = ("Baseline", "PRESLEY QP", "ELVIS CV2", "PRESLEY RealESRGAN", "PRESLEY InstantIR",
+                 "PRESLEY Lanczos", "PRESLEY Unsharp")
+# the JAX package's top-level keys of analysis_results.json (tests/test_pipeline.py)
+PIPELINE_KEYS = ("execution_times_seconds", "video_name", "video_length_seconds",
+                 "video_framerate", "video_resolution", "block_size", "target_bitrate_bps",
+                 "parameters", "experiment_dir", "analysis_results_path")
+# the cached stages of this config: scoring, five encodes, three restores
+PIPELINE_STAGES = ("scoring", "baseline_encode", "shrink_encode", "roi_encode",
+                   "downsample_encode", "gaussian_encode", "inpaint_diffusion", "sr_realesrgan",
+                   "deblur_deblur_net")
+
+
+def _rows(results):
+    return [k for k, v in results.items() if isinstance(v, dict) and "foreground" in v]
+
+
+def _rows_apart(a, b, relative=False):
+    """Largest difference of each metric between two runs' rows: relative
+    for the bitrate, absolute (or relative) for the rest."""
+    worst = {}
+    for row in _rows(b):
+        worst["bitrate_rel"] = max(worst.get("bitrate_rel", 0.0),
+                                   abs(a[row]["bitrate_mbps"] - b[row]["bitrate_mbps"])
+                                   / b[row]["bitrate_mbps"])
+        for region in ("foreground", "background"):
+            for key in ("psnr_mean", "ssim_mean", "mse_mean", "lpips_mean", "fvmd"):
+                d = abs(a[row][region][key] - b[row][region][key])
+                if relative:
+                    d /= max(abs(b[row][region][key]), 1e-12)
+                worst[key] = max(worst.get(key, 0.0), d)
+    return worst
+
+
+def phase_pipeline(smi_line):
+    """run_elvis at full width on the card, twice on one directory, then the
+    small card run held to the CPU run. Returns the first run's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from elvis_tpu_torch.codec.nvc.codec import NvcCodec
+    from elvis_tpu_torch.kernels import LAUNCHES
+    from elvis_tpu_torch.metrics.vmaf import vmaf_available
+    from elvis_tpu_torch.pipeline import ElvisConfig, run_elvis
+
+    print(f"[pipeline] vmaf binary {'found' if vmaf_available() else 'absent'}: the VMAF keys "
+          f"{'are' if vmaf_available() else 'are not'} in the rows")
+    with tempfile.TemporaryDirectory() as exp:
+        cfg = ElvisConfig(reference_video=f"synthetic://moving?frames={N}&fps=30", width=W,
+                          height=H, inpaint_backends=["diffusion"], experiment_dir=exp)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        stats = {}
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        first = run_elvis(cfg, device="cuda", stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peaks = stats["stage_peak_bytes"]
+        peak = max(peaks.values())
+        probe = NvcCodec("cpu").probe
+        qps = {k: (probe(s).base_qp, len(s)) for k, s in stats["streams"].items()}
+        with open(os.path.join(exp, "analysis_results.json")) as f:
+            written = json.load(f)
+        for rel in ("shrink_masks_8.npz", "maps/downsample_maps.npz", "maps/gaussian_maps.npz"):
+            check(os.path.isfile(os.path.join(exp, rel)), f"run_elvis wrote no {rel}")
+        masks = sorted(os.listdir(os.path.join(exp, "maps", "saliency_masks")))
+        check(len(masks) == N, f"saliency masks: {len(masks)} PNGs for {N} frames")
+        t0 = time.perf_counter()
+        second = run_elvis(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+
+    times = first["execution_times_seconds"]
+    print(f"[pipeline] run_elvis, {N} frames {W}x{H}, {smi_line}: {wall:.2f} s wall (first call "
+          f"in this process), peak max_memory_allocated {peak} bytes ({base} bytes held by the "
+          f"earlier phases)")
+    print("[pipeline] peak max_memory_allocated by stage, bytes: " + json.dumps(peaks))
+    print("[pipeline] execution_times_seconds: " + json.dumps(times))
+    print(f"[pipeline] kernel launches in the run: {json.dumps(launches)}")
+    check(launches.get("block_transform", 0) == 4,
+          "one transform launch per degrade or classical stage (downsample, blur, Lanczos, "
+          f"unsharp): {launches}")
+    check(set(written) >= set(PIPELINE_KEYS), f"JSON keys {sorted(written)}")
+    rows = _rows(first)
+    check(rows == list(PIPELINE_ROWS), f"rows {rows}")
+    duration = first["video_length_seconds"]
+    branch_of = {"Baseline": "baseline", "PRESLEY QP": "roi", "ELVIS CV2": "shrunk",
+                 "PRESLEY RealESRGAN": "downsampled", "PRESLEY Lanczos": "downsampled",
+                 "PRESLEY InstantIR": "gaussian", "PRESLEY Unsharp": "gaussian"}
+    print(f"[pipeline] target {first['target_bitrate_bps']} bit/s; stream QP and bytes by "
+          f"branch: {json.dumps(qps)}")
+    for row in rows:
+        r = first[row]
+        bits = r["bitrate_mbps"] * 1e6 * duration
+        check(r["bitrate_mbps"] > 0, f"{row}: bitrate {r['bitrate_mbps']}")
+        for region in ("foreground", "background"):
+            for key in ("psnr_mean", "ssim_mean", "mse_mean", "lpips_mean", "fvmd"):
+                check(np.isfinite(r[region][key]), f"{row} {region} {key} = {r[region][key]}")
+        fg, bg = r["foreground"], r["background"]
+        print(f"[pipeline] {row:<20} QP {qps[branch_of[row]][0]:>2}, {bits / 8:9.0f} bytes "
+              f"(with sidecar), {r['bitrate_mbps'] * 1e6:11.0f} bit/s; fg/bg PSNR "
+              f"{fg['psnr_mean']:.4f} / {bg['psnr_mean']:.4f} dB, SSIM {fg['ssim_mean']:.5f} / "
+              f"{bg['ssim_mean']:.5f}, LPIPS {fg['lpips_mean']:.5f} / {bg['lpips_mean']:.5f}, "
+              f"FVMD {fg['fvmd']:.4f} / {bg['fvmd']:.4f}")
+    print(f"[pipeline] second run on the same directory: {wall2:.2f} s wall; stage cache "
+          f"{json.dumps(second['stage_cache'])}; execution_times_seconds "
+          f"{json.dumps(second['execution_times_seconds'])}")
+    check(second["stage_cache"] == {"hits": list(PIPELINE_STAGES), "misses": []},
+          f"the second run was not served from the stage cache: {second['stage_cache']}")
+    apart = _rows_apart(second, first, relative=True)
+    print(f"[pipeline] second run against the first, largest relative difference over the rows:"
+          f" {json.dumps(apart)} (the bitrate must be equal; each metric within 1e-4: the "
+          f"classical rows and the evaluation run again on the card)")
+    check(apart["bitrate_rel"] == 0.0 and all(v <= 1e-4 for v in apart.values()),
+          "the second run's rows differ")
+
+    # the same pipeline at 6 frames of 96x64 on the card and on the CPU
+    small = dict(reference_video="synthetic://moving?frames=6&fps=30", width=96, height=64,
+                 inpaint_backends=["diffusion"], enable_vmaf=False, stage_cache=False,
+                 target_bitrate_override=100_000, verbose=False)
+    with tempfile.TemporaryDirectory() as exp:
+        card = run_elvis(ElvisConfig(experiment_dir=f"{exp}/card", **small), device="cuda")
+        cpu = run_elvis(ElvisConfig(experiment_dir=f"{exp}/cpu", **small), device="cpu")
+    check(_rows(card) == _rows(cpu) == list(PIPELINE_ROWS), "small run rows")
+    worst = _rows_apart(card, cpu)
+    print(f"[reference] run_elvis 6x96x64, card vs CPU, largest difference over the 7 rows: "
+          f"{json.dumps(worst)} (tol bitrate 1%, PSNR 0.1 dB, SSIM 2e-3, LPIPS 1e-3); "
+          f"relative: {json.dumps(_rows_apart(card, cpu, relative=True))}")
+    check(worst["bitrate_rel"] <= 0.01 and worst["psnr_mean"] <= 0.1
+          and worst["ssim_mean"] <= 2e-3 and worst["lpips_mean"] <= 1e-3,
+          f"card and CPU runs differ: {worst}")
+
+    # the PDE fill alone at full width: 200 eager iterations
+    from torch.profiler import ProfilerActivity, profile
+
+    from elvis_tpu_torch.degrade.removal import removal_mask_from_scores
+    from elvis_tpu_torch.restore.inpaint import restore_removal_diffusion
+
+    clip = make_clip(torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    scores = torch.rand((N, H // B, W // B), generator=gen, device="cuda")
+    mask = removal_mask_from_scores(scores, W // B, 0.25, cooldown=1)
+    fill_ms = cuda_ms(lambda: restore_removal_diffusion(clip, mask, B), iters=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        restore_removal_diffusion(clip, mask, B)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    count = sum(e.count for e in kernels)
+    print(f"[pipeline] PDE fill alone, {N}x{H}x{W}x3, 200 iterations, a quarter of the blocks "
+          f"removed: {fill_ms:.2f} ms a call (CUDA events, mean of 3); {count} device kernels "
+          f"busy {busy:.2f} ms under the profiler")
+
+    # which part of the evaluation holds its peak: each alone on one metric
+    # chunk (the clip against its noisy copy), memory above what was held
+    from elvis_tpu_torch.metrics.evaluate import _EVAL_CHUNK_PIXELS
+    from elvis_tpu_torch.metrics.fvmd import region_motion_features
+    from elvis_tpu_torch.metrics.perceptual import lpips_distance
+    from elvis_tpu_torch.metrics.pixel import masked_ssim
+
+    k = max(1, _EVAL_CHUNK_PIXELS // (H * W))
+    noisy = torch.clamp(clip.float() + 8.0 * torch.randn(clip.shape, generator=gen,
+                                                         device="cuda"), 0, 255).to(torch.uint8)
+    fg = clip[..., 0] > 128
+    parts = {
+        f"lpips_distance ({k} frames)": lambda: lpips_distance(clip[:k].float(),
+                                                               noisy[:k].float()),
+        f"masked_ssim ({k} frames)": lambda: masked_ssim(clip[:k].float(), noisy[:k].float(),
+                                                         fg[:k]),
+        f"region_motion_features ({N} frames)": lambda: region_motion_features(noisy, fg),
+    }
+    part_peaks = {}
+    for label, fn in parts.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        part_peaks[label] = torch.cuda.max_memory_allocated() - held
+    print("[pipeline] evaluation parts alone, peak max_memory_allocated above what was held, "
+          "bytes: " + json.dumps(part_peaks))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1166,7 +1367,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    name, count, _ = phase_device()
+    name, count, smi_line = phase_device()
     if "--codec-only" in sys.argv[1:]:  # while working on the codec: no ``ok`` line
         from elvis_tpu_torch.pipeline import ElvisConfig
 
@@ -1181,6 +1382,7 @@ def main() -> int:
     if profile:
         phase_profile(main_tensors)
     launches_codec = phase_codec(main_tensors, profile)
+    launches_pipeline = phase_pipeline(smi_line)
     # the transform kernel's headline row is what the paths launch: uint8
     # frames, b=8, the main path's table; the batched kernel's is the block
     # contract at the same table (b=8, L=4, M=259,200, C=3)
@@ -1190,7 +1392,8 @@ def main() -> int:
     for kname, (_, source, replaces) in KERNELS.items():
         rows = all_rows[kname]
         by_path = {"main": launches_main.get(kname, 0), "blur": launches_blur.get(kname, 0),
-                   "codec": launches_codec.get(kname, 0)}
+                   "codec": launches_codec.get(kname, 0),
+                   "pipeline": launches_pipeline.get(kname, 0)}
         uint8_rows = [r for r in rows if r.get("uint8_pixels_differing") is not None]
         kernels.append({
             "name": kname,

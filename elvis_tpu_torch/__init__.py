@@ -26,17 +26,25 @@ both CUDA C++ for ``sm_90a`` and both the per-block transform
 
 Both share their arithmetic, ``kernels/csrc/block_transform_core.cuh``.
 
+The pipeline runs end to end: ``pipeline.run_elvis(config, device=...)``,
+or ``python -m elvis_tpu_torch.cli`` on the card, writes the JAX package's
+``analysis_results.json``.
+
 Subpackages, each the counterpart of the JAX package's of the same name:
 ``core`` (block algebra), ``ops`` (resize, filters, colour incl. planar
-YUV 4:2:0, DCT and inverse DCT), ``kernels``, ``scoring``, ``degrade``,
-``models``, ``restore``, ``metrics``, ``pipeline`` (``ElvisConfig``) and
-``codec``: the NVC codec (``codec.nvc.transform``: ``encode_plane``,
+YUV 4:2:0, DCT and inverse DCT, block motion), ``kernels``, ``scoring``,
+``degrade`` (adaptive downsample and blur, block removal), ``models``,
+``restore`` (SR, deblur, classical, the PDE fill, temporal blend),
+``metrics`` (masked PSNR/SSIM/MSE, LPIPS, FVMD, VMAF, the evaluation
+fan-out and report), ``pipeline`` (``ElvisConfig``, clip I/O, the stage
+cache, ``run_elvis``), ``utils`` and ``codec``: the NVC codec (``codec.nvc.transform``: ``encode_plane``,
 ``decode_plane``, ``encode_plane_b``, ``decode_plane_b``;
 ``codec.nvc.codec``: ``encode``, ``decode``, ``NvcCodec``;
 ``codec.nvc.entropy``: the range coder, built from
 ``codec/nvc/csrc/rangecoder.cpp`` by the host compiler at first use), the
-strength-map and removal-mask sidecars (``codec.sidecar``) and the
-pipeline's adapter (``codec.dispatch.make_pipeline_codec``). The codec's
+strength-map and removal-mask sidecars (``codec.sidecar``), Y4M
+(``codec.y4m``) and the pipeline's adapter
+(``codec.dispatch.make_pipeline_codec``). The codec's
 device half is stock PyTorch ops, as the JAX package's is XLA ops.
 """
 

@@ -1,5 +1,10 @@
-from elvis_tpu_torch.restore.backends import resolve_deblur_backend, resolve_sr_backend
+from elvis_tpu_torch.restore.backends import (
+    resolve_deblur_backend,
+    resolve_inpaint_backend,
+    resolve_sr_backend,
+)
 from elvis_tpu_torch.restore.hybrid import blended_restoration
+from elvis_tpu_torch.restore.inpaint import restore_removal_diffusion
 from elvis_tpu_torch.restore.lanczos import (
     restore_downsample_lanczos,
     restore_downsample_scale_lanczos,
@@ -15,6 +20,7 @@ from elvis_tpu_torch.restore.registry import (
     get_restorer,
     register_restorer,
 )
+from elvis_tpu_torch.restore.temporal import temporal_blend
 from elvis_tpu_torch.restore.unsharp import restore_blur_unsharp
 
 __all__ = [
@@ -28,8 +34,11 @@ __all__ = [
     "progressive_restore",
     "register_restorer",
     "resolve_deblur_backend",
+    "resolve_inpaint_backend",
     "resolve_sr_backend",
     "restore_blur_unsharp",
     "restore_downsample_lanczos",
     "restore_downsample_scale_lanczos",
+    "restore_removal_diffusion",
+    "temporal_blend",
 ]

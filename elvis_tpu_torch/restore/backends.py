@@ -1,5 +1,6 @@
-"""Config-driven restoration backends (port of the single-tier SR part
-and the deblur part of ``elvis_tpu.restore.backends``).
+"""Config-driven restoration backends (port of the single-tier SR part,
+the deblur part and the ``'diffusion'`` inpaint slot of
+``elvis_tpu.restore.backends``).
 
 Every resolved backend has the restorer signature
 ``fn(frames, maps, block_size) -> frames``. Neural backends load the
@@ -22,7 +23,8 @@ from elvis_tpu_torch.models.srnet import srnet_upsample_fn
 from elvis_tpu_torch.restore.progressive import lanczos_upsample_2x, progressive_restore
 from elvis_tpu_torch.restore.unsharp import restore_blur_unsharp
 
-__all__ = ["resolve_sr_backend", "resolve_deblur_backend", "default_params_path"]
+__all__ = ["resolve_sr_backend", "resolve_deblur_backend", "resolve_inpaint_backend",
+           "default_params_path"]
 
 BackendFn = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 
@@ -58,7 +60,24 @@ def resolve_sr_backend(name: str, config,
     """Downsample-restoration backends: 'realesrgan' (the measured-best
     shipped tier), 'srnet_student', 'srnet_large', 'srnet_compact' (each
     progressive neural, falling back to Lanczos without weights) and
-    'progressive_lanczos'. Neural weights load onto ``device``."""
+    'progressive_lanczos'. Neural weights load onto ``device``.
+
+    The config's SR runtime knobs ride on the returned function for the
+    pipeline's stage driver: ``realesrgan_tile`` (> 0) asks for height
+    tiling at ``tile * tile`` pixels a call with a halo of
+    ``max(32, realesrgan_tile_pad)`` rows, ``realesrgan_parallel_chunk_length``
+    bounds the frames a call."""
+
+    def knobs(fn, prov):
+        tile = int(getattr(config, "realesrgan_tile", 0) or 0)
+        if tile > 0:
+            fn.spatial_halo_rows = max(32, int(getattr(config, "realesrgan_tile_pad", 10) or 0))
+            fn.spatial_pixel_budget = tile * tile
+        chunk = getattr(config, "realesrgan_parallel_chunk_length", None)
+        if chunk:
+            fn.frame_chunk = int(chunk)
+        return fn, prov
+
     if name == "progressive_lanczos":
         return (lambda f, m, b: progressive_restore(f, m, b, upsample_fn=lanczos_upsample_2x),
                 "progressive_lanczos")
@@ -68,8 +87,8 @@ def resolve_sr_backend(name: str, config,
         if up is None:
             return (lambda f, m, b: progressive_restore(f, m, b, upsample_fn=lanczos_upsample_2x),
                     prov)
-        return (lambda f, m, b: progressive_restore(f, m, b, upsample_fn=up),
-                f"progressive_neural[{prov}]")
+        return knobs(lambda f, m, b: progressive_restore(f, m, b, upsample_fn=up),
+                     f"progressive_neural[{prov}]")
     raise ValueError(f"unknown SR backend {name!r}")
 
 
@@ -128,3 +147,19 @@ def resolve_deblur_backend(name: str, config,
         raise ValueError(f"deblur backend {name!r} is not ported yet: it needs the "
                          "diffusion restorer (models/diffusion.py)")
     raise ValueError(f"unknown deblur backend {name!r}")
+
+
+def resolve_inpaint_backend(name: str, config) -> Tuple[BackendFn, str]:
+    """Removal-restoration backends: 'diffusion' (the PDE fill, the
+    counterpart of OpenCV's Telea fill). 'temporal' (motion propagation)
+    and 'neural' / 'inpaint_net' / 'e2fgvi' (InpaintNet over a temporal
+    seed) are not ported yet."""
+    from elvis_tpu_torch.restore.inpaint import restore_removal_diffusion
+
+    if name == "diffusion":
+        return restore_removal_diffusion, "pde_diffusion"
+    if name in ("temporal", "neural", "inpaint_net", "e2fgvi"):
+        raise NotImplementedError(
+            f"inpaint backend {name!r}: not ported yet (ROADMAP.md §1 item 3, "
+            "restore_removal_temporal, InpaintNet and the 'temporal'/'neural' backends)")
+    raise ValueError(f"unknown inpaint backend {name!r}")

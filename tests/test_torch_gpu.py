@@ -476,3 +476,80 @@ def test_codec_motion_prediction_is_bit_exact_on_card():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
     assert torch.equal(got.cpu(), want)
+
+
+# --- the pipeline (run_elvis) and its new modules, card against CPU ---------
+
+@pytest.mark.gpu
+def test_lpips_on_card_matches_cpu():
+    """The shipped LPIPS backbone in float32 with TF32 off: card and CPU
+    within 1e-5 relative, whatever the global TF32 switch says."""
+    from elvis_tpu_torch.metrics.perceptual import lpips_distance
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    ref = (rng.random((3, 72, 104, 3)) * 255).astype(np.float32)
+    dec = np.clip(ref + rng.normal(0, 12, ref.shape), 0, 255).astype(np.float32)
+    want = lpips_distance(torch.from_numpy(ref), torch.from_numpy(dec))
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = lpips_distance(torch.from_numpy(ref).to(dev), torch.from_numpy(dec).to(dev))
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert got.is_cuda
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_motion_hint_and_pde_fill_on_card_match_cpu():
+    """The server's motion hint (quarter-pel ints) is the same on the card;
+    the PDE fill within 1 LSB."""
+    from elvis_tpu_torch.ops.motion import motion_hint
+    from elvis_tpu_torch.restore.inpaint import restore_removal_diffusion
+
+    dev = _cuda()
+    rng = np.random.default_rng(6)
+    tex = np.cumsum(np.cumsum(rng.random((96, 140)), 0), 1)
+    tex = (tex / tex.max() * 200 + 20).astype(np.float32)
+    clip = np.stack([tex[2 * t:2 * t + 64, 3 * t:3 * t + 96] for t in range(5)])
+    clip = np.clip(np.stack([clip, clip * 0.9, clip], -1), 0, 255).astype(np.uint8)
+    g_cpu, d_cpu = motion_hint(torch.from_numpy(clip), 8)
+    g_card, d_card = motion_hint(torch.from_numpy(clip).to(dev), 8)
+    assert torch.equal(g_card.cpu(), g_cpu) and torch.equal(d_card.cpu(), d_cpu)
+    assert g_cpu.abs().sum() > 0
+    mask = torch.from_numpy((rng.random((5, 8, 12)) < 0.3).astype(np.int8))
+    f_cpu = restore_removal_diffusion(torch.from_numpy(clip), mask, 8)
+    f_card = restore_removal_diffusion(torch.from_numpy(clip).to(dev), mask.to(dev), 8)
+    assert (f_card.cpu().int() - f_cpu.int()).abs().max().item() <= 1
+
+
+@pytest.mark.gpu
+def test_run_elvis_on_card_matches_cpu(tmp_path):
+    """run_elvis at 6 frames of 96x64 on the card and on the CPU: the same
+    rows, each within the CPU-parity tolerances of
+    tests/test_torch_pipeline.py (bitrate 1%, PSNR 0.1 dB, SSIM 2e-3, LPIPS
+    1e-3)."""
+    from elvis_tpu_torch.pipeline import ElvisConfig, run_elvis
+
+    _cuda()
+    kw = dict(reference_video="synthetic://moving?frames=6&fps=30", width=96, height=64,
+              inpaint_backends=["diffusion"], enable_vmaf=False, stage_cache=False,
+              target_bitrate_override=100_000, verbose=False)
+    stats = {}
+    card = run_elvis(ElvisConfig(experiment_dir=str(tmp_path / "card"), **kw), device="cuda",
+                     stats=stats)
+    assert set(stats["stage_peak_bytes"]) <= set(card["execution_times_seconds"])
+    assert stats["stage_peak_bytes"]["Performance Evaluation"] > 0
+    cpu = run_elvis(ElvisConfig(experiment_dir=str(tmp_path / "cpu"), **kw), device="cpu")
+    rows = [k for k, v in cpu.items() if isinstance(v, dict) and "foreground" in v]
+    assert rows == [k for k, v in card.items() if isinstance(v, dict) and "foreground" in v]
+    assert len(rows) == 7
+    for row in rows:
+        a, b = card[row], cpu[row]
+        assert abs(a["bitrate_mbps"] - b["bitrate_mbps"]) <= 0.01 * b["bitrate_mbps"], row
+        for region in ("foreground", "background"):
+            assert abs(a[region]["psnr_mean"] - b[region]["psnr_mean"]) <= 0.1, (row, region)
+            assert abs(a[region]["ssim_mean"] - b[region]["ssim_mean"]) <= 2e-3, (row, region)
+            assert abs(a[region]["lpips_mean"] - b[region]["lpips_mean"]) <= 1e-3, (row, region)
+            assert np.isfinite(a[region]["fvmd"]), (row, region)

@@ -1,15 +1,18 @@
-"""The port's committed weights (SR nets, deblur net) against the orbax
-checkpoints they were exported from, and the port's import boundary.
+"""The port's committed weights (SR nets, deblur net, LPIPS backbone)
+against the orbax checkpoints they were exported from, and the port's
+import boundary.
 
 Export (run once, from the repo root, where JAX and orbax are installed):
 
     python tests/test_torch_weights.py --write
 
-writes ``elvis_tpu_torch/weights/<name>.npz`` for each name in ``EXPORTS``
-and for ``deblur``: the flax param tree as float32 arrays under their
-``params/<layer>/<leaf>`` paths, plus the model's hyper-parameters
-(``features`` and ``num_convs``; for ``deblur``: ``features``, ``levels`` and
-the ``max_strength`` of ``checkpoints/deblur.meta.json``).
+writes ``elvis_tpu_torch/weights/<name>.npz`` for each name in ``EXPORTS``,
+for ``deblur`` and for ``perceptual``: the flax param tree as float32 arrays
+under their ``params/<layer>/<leaf>`` paths, plus the model's
+hyper-parameters (``features`` and ``num_convs``; for ``deblur``:
+``features``, ``levels`` and the ``max_strength`` of
+``checkpoints/deblur.meta.json``; ``perceptual`` has none: its widths are
+its kernels' shapes).
 """
 
 import ast
@@ -48,6 +51,11 @@ def orbax_params(name):
     if name == "deblur":  # the example args of restore.backends.resolve_deblur_backend
         return load_params(DeblurUNet(**DEBLUR), str(REPO / "checkpoints" / name),
                            jnp.zeros((1, 16, 16, 3)), jnp.zeros((1, 2, 2), jnp.int32), 8)
+    if name == "perceptual":  # the example args of metrics.perceptual
+        from elvis_tpu.metrics.perceptual import PerceptualNet
+
+        return load_params(PerceptualNet(), str(REPO / "checkpoints" / name),
+                           jnp.zeros((1, 64, 64, 3)))
     feats, convs = EXPORTS[name]
     model = SRNetCompact(features=feats, num_convs=convs)
     return load_params(model, str(REPO / "checkpoints" / name), jnp.zeros((1, 16, 16, 3)))
@@ -64,6 +72,8 @@ def write_weights(name):
     if name == "deblur":
         meta = {"features": np.int64(DEBLUR["features"]), "levels": np.int64(DEBLUR["levels"]),
                 "max_strength": np.float64(deblur_max_strength())}
+    elif name == "perceptual":
+        meta = {}
     else:
         feats, convs = EXPORTS[name]
         meta = {"features": np.int64(feats), "num_convs": np.int64(convs)}
@@ -112,6 +122,31 @@ def test_committed_deblur_weights_equal_orbax_restore():
     for key in want:
         assert got[key].dtype == np.float32
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def test_committed_perceptual_weights_equal_orbax_restore():
+    """Every array of the committed perceptual.npz (the LPIPS backbone)
+    equals the orbax restore exactly: five convs, no meta."""
+    from elvis_tpu_torch.models.io import read_npz, weights_path
+
+    path = weights_path("perceptual")
+    assert path is not None, "missing elvis_tpu_torch/weights/perceptual.npz"
+    tree, meta = read_npz(path)
+    assert meta == {}
+    want = _flat(orbax_params("perceptual"))
+    got = _flat(tree)
+    assert sorted(got) == sorted(want) and len(want) == 10  # 5 convs
+    for key in want:
+        assert got[key].dtype == np.float32
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def test_load_perceptual_builds_the_shipped_net():
+    from elvis_tpu_torch.metrics.perceptual import ensure_loaded
+
+    net = ensure_loaded("cpu")
+    assert net.features == (32, 64, 128, 128, 128) and not net.training
+    assert not any(p.requires_grad for p in net.parameters())
 
 
 def test_load_deblur_builds_the_shipped_net():
@@ -171,5 +206,5 @@ if __name__ == "__main__":
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, str(REPO))
-    for n in (*EXPORTS, "deblur"):
+    for n in (*EXPORTS, "deblur", "perceptual"):
         print(write_weights(n))
