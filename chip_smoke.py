@@ -50,15 +50,22 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
 
   6. the pipeline as users start it: ``run_elvis`` (what ``python -m
      elvis_tpu_torch.cli`` runs) on an 8-frame 1080p synthetic clip with the
-     default config but ``inpaint_backends=["diffusion"]``: scoring, the
-     baseline, shrink (removal + motion hint), ROI, downsample and blur
-     encodes, the stretch and PDE fill, SR and deblur restores, the
-     classical rows, evaluation with LPIPS and FVMD, analysis_results.json.
-     It prints the stage times, each row's QP, bytes, bit/s and metrics and
+     default config: scoring, the baseline, shrink (removal + motion hint),
+     ROI, downsample and blur encodes, the stretch and the three fills (PDE,
+     temporal propagation, InpaintNet over a temporal seed, the last two
+     reading the motion hint), SR and deblur restores, the classical rows,
+     evaluation with LPIPS and FVMD, analysis_results.json: nine rows. It
+     prints the stage times, each row's QP, bytes, bit/s and metrics and
      the peak memory, checks the rows, the JSON and the sidecars, counts one
      transform launch per degrade or classical stage, runs again on the same
      directory (every encode and restore from the stage cache, the same
-     rows), and holds a 6-frame 96x64 run on the card to one on the CPU.
+     rows), and holds a 6-frame 96x64 run on the card to one on the CPU;
+  7. the two new fills alone at full width on the shrunk branch's decoded
+     frames, as stage 8 calls them, CUDA events and peak memory each: the
+     temporal fill with and without the motion hint, the E2FGVI seed, and
+     the net's ``post`` as the stage drives it (height tiles) and in one
+     call; then, on a centre crop, the temporal fill (with and without the
+     hint) and the net on the card held to the same calls on the CPU.
 
 ``python3 chip_smoke.py --codec-only`` runs phase 5 alone (no kernel table,
 no ``ok`` line). ``python3 chip_smoke.py --profile`` adds, before phase 5, a
@@ -1167,16 +1174,25 @@ def phase_profile(main):
                   f"back to back (CUDA events)")
 
 
-PIPELINE_ROWS = ("Baseline", "PRESLEY QP", "ELVIS CV2", "PRESLEY RealESRGAN", "PRESLEY InstantIR",
-                 "PRESLEY Lanczos", "PRESLEY Unsharp")
+PIPELINE_ROWS = ("Baseline", "PRESLEY QP", "ELVIS CV2", "ELVIS ProPainter", "ELVIS E2FGVI",
+                 "PRESLEY RealESRGAN", "PRESLEY InstantIR", "PRESLEY Lanczos", "PRESLEY Unsharp")
 # the JAX package's top-level keys of analysis_results.json (tests/test_pipeline.py)
 PIPELINE_KEYS = ("execution_times_seconds", "video_name", "video_length_seconds",
                  "video_framerate", "video_resolution", "block_size", "target_bitrate_bps",
                  "parameters", "experiment_dir", "analysis_results_path")
-# the cached stages of this config: scoring, five encodes, three restores
+# the cached stages of the default config: scoring, five encodes, five restores
 PIPELINE_STAGES = ("scoring", "baseline_encode", "shrink_encode", "roi_encode",
-                   "downsample_encode", "gaussian_encode", "inpaint_diffusion", "sr_realesrgan",
-                   "deblur_deblur_net")
+                   "downsample_encode", "gaussian_encode", "inpaint_diffusion", "inpaint_temporal",
+                   "inpaint_neural", "sr_realesrgan", "deblur_deblur_net")
+# stage 8's timers of the two fills this slice adds
+FILL_STAGES = ("ProPainter Inpainting", "E2FGVI Inpainting")
+# phase 7's card-vs-CPU crop (rows, columns) and the net's bounds there, bf16
+# on both sides: max abs over hole pixels in grey levels (the card read 0.38
+# on this crop and 0.46 on the card test's clip), and the mean error as a
+# share of the CPU's mean residual (read 0.27%)
+CROP = (256, 512)
+NET_GREY_TOL = 1.0
+NET_RESIDUAL_TOL = 0.02
 
 
 def _rows(results):
@@ -1202,7 +1218,9 @@ def _rows_apart(a, b, relative=False):
 
 def phase_pipeline(smi_line):
     """run_elvis at full width on the card, twice on one directory, then the
-    small card run held to the CPU run. Returns the first run's launches."""
+    small card run held to the CPU run. Returns the first run's launches and
+    what phase 7 needs of the first run: the shrunk branch's stream and the
+    removal sidecar."""
     import os
     import tempfile
 
@@ -1217,7 +1235,7 @@ def phase_pipeline(smi_line):
           f"{'are' if vmaf_available() else 'are not'} in the rows")
     with tempfile.TemporaryDirectory() as exp:
         cfg = ElvisConfig(reference_video=f"synthetic://moving?frames={N}&fps=30", width=W,
-                          height=H, inpaint_backends=["diffusion"], experiment_dir=exp)
+                          height=H, experiment_dir=exp)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
@@ -1238,6 +1256,10 @@ def phase_pipeline(smi_line):
             check(os.path.isfile(os.path.join(exp, rel)), f"run_elvis wrote no {rel}")
         masks = sorted(os.listdir(os.path.join(exp, "maps", "saliency_masks")))
         check(len(masks) == N, f"saliency masks: {len(masks)} PNGs for {N} frames")
+        from elvis_tpu_torch.codec.sidecar import load_removal_masks_npz
+
+        removal = load_removal_masks_npz(os.path.join(exp, "shrink_masks_8.npz"),
+                                         with_motion=True)
         t0 = time.perf_counter()
         second = run_elvis(cfg, device="cuda")
         torch.cuda.synchronize()
@@ -1249,6 +1271,14 @@ def phase_pipeline(smi_line):
           f"earlier phases)")
     print("[pipeline] peak max_memory_allocated by stage, bytes: " + json.dumps(peaks))
     print("[pipeline] execution_times_seconds: " + json.dumps(times))
+    for stage in FILL_STAGES:
+        check(stage in times and stage in peaks, f"no {stage} stage in the run")
+        print(f"[pipeline] {stage}: {times[stage]:.3f} s, peak max_memory_allocated "
+              f"{peaks[stage]} bytes")
+    provs = first["parameters"]["derived"]["backends"]
+    print(f"[pipeline] inpaint backends: {json.dumps({k: provs[k] for k in PIPELINE_ROWS[2:5]})}")
+    check(all(provs[k].endswith("+motion_hint") for k in PIPELINE_ROWS[3:5]),
+          "the temporal and neural fills did not read the motion hint")
     print(f"[pipeline] kernel launches in the run: {json.dumps(launches)}")
     check(launches.get("block_transform", 0) == 4,
           "one transform launch per degrade or classical stage (downsample, blur, Lanczos, "
@@ -1258,6 +1288,7 @@ def phase_pipeline(smi_line):
     check(rows == list(PIPELINE_ROWS), f"rows {rows}")
     duration = first["video_length_seconds"]
     branch_of = {"Baseline": "baseline", "PRESLEY QP": "roi", "ELVIS CV2": "shrunk",
+                 "ELVIS ProPainter": "shrunk", "ELVIS E2FGVI": "shrunk",
                  "PRESLEY RealESRGAN": "downsampled", "PRESLEY Lanczos": "downsampled",
                  "PRESLEY InstantIR": "gaussian", "PRESLEY Unsharp": "gaussian"}
     print(f"[pipeline] target {first['target_bitrate_bps']} bit/s; stream QP and bytes by "
@@ -1289,14 +1320,14 @@ def phase_pipeline(smi_line):
 
     # the same pipeline at 6 frames of 96x64 on the card and on the CPU
     small = dict(reference_video="synthetic://moving?frames=6&fps=30", width=96, height=64,
-                 inpaint_backends=["diffusion"], enable_vmaf=False, stage_cache=False,
-                 target_bitrate_override=100_000, verbose=False)
+                 enable_vmaf=False, stage_cache=False, target_bitrate_override=100_000,
+                 verbose=False)
     with tempfile.TemporaryDirectory() as exp:
         card = run_elvis(ElvisConfig(experiment_dir=f"{exp}/card", **small), device="cuda")
         cpu = run_elvis(ElvisConfig(experiment_dir=f"{exp}/cpu", **small), device="cpu")
     check(_rows(card) == _rows(cpu) == list(PIPELINE_ROWS), "small run rows")
     worst = _rows_apart(card, cpu)
-    print(f"[reference] run_elvis 6x96x64, card vs CPU, largest difference over the 7 rows: "
+    print(f"[reference] run_elvis 6x96x64, card vs CPU, largest difference over the 9 rows: "
           f"{json.dumps(worst)} (tol bitrate 1%, PSNR 0.1 dB, SSIM 2e-3, LPIPS 1e-3); "
           f"relative: {json.dumps(_rows_apart(card, cpu, relative=True))}")
     check(worst["bitrate_rel"] <= 0.01 and worst["psnr_mean"] <= 0.1
@@ -1353,7 +1384,111 @@ def phase_pipeline(smi_line):
         part_peaks[label] = torch.cuda.max_memory_allocated() - held
     print("[pipeline] evaluation parts alone, peak max_memory_allocated above what was held, "
           "bytes: " + json.dumps(part_peaks))
-    return launches
+    return launches, stats["streams"]["shrunk"], removal
+
+
+def _timed_with_peak(fn, iters=3):
+    """(ms a call by CUDA events, mean of ``iters`` after one warm-up; peak
+    max_memory_allocated of one call above what was held, bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    return cuda_ms(fn, iters=iters, warmup=0), peak
+
+
+def phase_fills(smi_line, shrunk_stream, removal):
+    """The temporal fill and the net alone at full width on the shrunk
+    branch's decoded and stretched frames, through the backends stage 8
+    resolves, with and without the transmitted motion hint."""
+    from elvis_tpu_torch.codec.nvc.codec import decode
+    from elvis_tpu_torch.degrade.removal import stretch_frames
+    from elvis_tpu_torch.ops.motion import motion_field_from_hint
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.pipeline.run import _apply_temporal, _carry_tiling, _height_tile_plan
+    from elvis_tpu_torch.restore.backends import resolve_inpaint_backend
+
+    masks, gmv, dev = removal
+    check(gmv is not None and dev is not None, "the removal sidecar carries no motion hint")
+    mask = torch.as_tensor(masks.astype("int8"), device="cuda")
+    decoded, _ = decode(shrunk_stream, device="cuda")
+    stretched = stretch_frames(decoded, mask, B)
+    field = motion_field_from_hint(torch.as_tensor(gmv, device="cuda"),
+                                   torch.as_tensor(dev, device="cuda"), H // B, W // B)
+    cfg = ElvisConfig()
+    temporal, _ = resolve_inpaint_backend("temporal", cfg, device="cuda")
+    neural, _ = resolve_inpaint_backend("neural", cfg, device="cuda")
+    seed, post = neural.split, neural.split.post
+    seeded = seed(stretched, mask, B, mv=field)
+    staged = _carry_tiling(lambda f, m: post(f, m, B), post)
+    tiles = _height_tile_plan(staged, seeded.shape, N)
+    out = {}
+    parts = {
+        "temporal fill, motion hint": lambda: temporal(stretched, mask, B, mv=field),
+        "temporal fill, estimated motion": lambda: temporal(stretched, mask, B),
+        "E2FGVI seed, motion hint": lambda: seed(stretched, mask, B, mv=field),
+        f"net post as stage 8 drives it (halo, window rows {tiles})":
+            lambda: _apply_temporal(staged, (seeded, mask), overlap=post.temporal_overlap),
+        "net post, one call": lambda: post(seeded, mask, B),
+    }
+    for label, fn in parts.items():
+        ms, peak = _timed_with_peak(fn)
+        out[label] = {"ms": round(ms, 3), "peak_bytes": peak}
+        r = fn()
+        check(r.shape == stretched.shape and bool(torch.isfinite(r.float()).all()),
+              f"{label}: shape {tuple(r.shape)} or non-finite values")
+    hole = mask.bool().repeat_interleave(B, 1).repeat_interleave(B, 2)
+    for label in ("temporal fill, motion hint", "temporal fill, estimated motion"):
+        r = parts[label]()
+        check(torch.equal(r[~hole], stretched[~hole]), f"{label} changed known pixels")
+    print(f"[fills] {N}x{H}x{W}, {int(mask.sum())} of {mask.numel()} blocks removed, "
+          f"{smi_line}: " + json.dumps(out))
+
+    # card against CPU on a centre crop of the same frames: the scatter
+    # inverse adds with float atomics on the card, in no fixed order, and the
+    # net's bf16 convolutions are cuDNN's there
+    ch, cw = CROP
+    y0 = (H // 2 - ch // 2) // (2 * B) * (2 * B)
+    x0 = (W // 2 - cw // 2) // (2 * B) * (2 * B)
+    rows, cols = slice(y0, y0 + ch), slice(x0, x0 + cw)
+    brows, bcols = slice(y0 // B, (y0 + ch) // B), slice(x0 // B, (x0 + cw) // B)
+    c_frames, c_mask = stretched[:, rows, cols], mask[:, brows, bcols]
+    c_field = field[:, brows, bcols]
+    c_hole = hole[:, rows, cols].cpu()
+    net_cpu, _ = resolve_inpaint_backend("neural", cfg, device="cpu")
+    apart = {}
+    for label, mv in (("temporal fill, motion hint", c_field),
+                      ("temporal fill, estimated motion", None)):
+        card = temporal(c_frames, c_mask, B, mv=mv).cpu()
+        cpu = temporal(c_frames.cpu(), c_mask.cpu(), B, mv=None if mv is None else mv.cpu())
+        d = (card[c_hole].int() - cpu[c_hole].int()).abs()
+        within = float((d <= 1).float().mean())
+        known_equal = bool(torch.equal(card[~c_hole], cpu[~c_hole]))
+        apart[label] = {"known_bit_equal": known_equal, "hole_within_1_lsb": within,
+                        "hole_max_lsb": int(d.max())}
+        check(known_equal and within >= 0.995,
+              f"{label}, card vs CPU: {apart[label]} (known pixels bit-equal, at least 99.5% "
+              "of hole pixels within 1 LSB)")
+    c_seeded = seeded[:, rows, cols]
+    card = post(c_seeded, c_mask, B).cpu()
+    cpu = net_cpu.split.post(c_seeded.cpu(), c_mask.cpu(), B)
+    net_err = float((card - cpu).abs()[c_hole].max())
+    # the residual is the net's work: the card's must be the CPU's, not zero
+    # and not noise the clamp and the hole mask would hide
+    residual = float((cpu - c_seeded.cpu()).abs()[c_hole].mean())
+    res_err = float((card - cpu).abs()[c_hole].mean()) / max(residual, 1e-9)
+    apart["net post (bf16)"] = {"hole_max_abs_grey": net_err,
+                                "cpu_hole_mean_residual_grey": residual,
+                                "card_residual_mean_error_relative": res_err}
+    print(f"[fills] card vs CPU on a {N}x{ch}x{cw} crop at ({y0}, {x0}): " + json.dumps(apart)
+          + f" (temporal: known bit-equal, >= 99.5% of hole pixels within 1 LSB; net: hole "
+          f"max abs <= {NET_GREY_TOL} grey levels < mean residual, mean error <= "
+          f"{NET_RESIDUAL_TOL:.0%} of it)")
+    check(net_err <= NET_GREY_TOL < residual and res_err <= NET_RESIDUAL_TOL,
+          f"the net on the card against the CPU: {apart['net post (bf16)']}")
 
 
 def main() -> int:
@@ -1375,14 +1510,28 @@ def main() -> int:
         phase_codec({"frames": frames, "fg": score(frames, ElvisConfig())[1]},
                     "--profile" in sys.argv[1:])
         return 0
+    t_start = time.perf_counter()
+
+    def starting(phase):  # a line as each phase starts: a hang is located
+        print(f"[phase] {phase} starting at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    starting("2 kernels")
     kernel_results, frame_rows = phase_kernels()
+    starting("3 main path")
     launches_main, main_tensors = phase_main_path()
+    starting("4 blur path")
     launches_blur = phase_blur_path(main_tensors)
     profile = "--profile" in sys.argv[1:]
     if profile:
+        starting("profile")
         phase_profile(main_tensors)
+    starting("5 codec")
     launches_codec = phase_codec(main_tensors, profile)
-    launches_pipeline = phase_pipeline(smi_line)
+    starting("6 pipeline")
+    launches_pipeline, shrunk_stream, removal = phase_pipeline(smi_line)
+    starting("7 fills")
+    phase_fills(smi_line, shrunk_stream, removal)
+    starting("kernel table")
     # the transform kernel's headline row is what the paths launch: uint8
     # frames, b=8, the main path's table; the batched kernel's is the block
     # contract at the same table (b=8, L=4, M=259,200, C=3)

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "block_grid_shape",
@@ -16,6 +17,7 @@ __all__ = [
     "combine_blocks",
     "upsample_map",
     "blockwise_reduce",
+    "dilate_block_mask",
 ]
 
 
@@ -51,6 +53,21 @@ def upsample_map(block_map: torch.Tensor, block_size: int) -> torch.Tensor:
     """``(..., By, Bx) -> (..., By*b, Bx*b)`` by nearest-neighbour repetition."""
     x = torch.repeat_interleave(block_map, block_size, dim=-1)
     return torch.repeat_interleave(x, block_size, dim=-2)
+
+
+def dilate_block_mask(mask: torch.Tensor, radius: int) -> torch.Tensor:
+    """Binary dilation of a per-block map ``(..., By, Bx)`` by ``radius``
+    blocks (Chebyshev / square structuring element), as bool. Shifts do not
+    wrap: past the frame edge counts as not removed. ``radius=0`` is the
+    identity."""
+    out = mask.bool()
+    if radius <= 0:
+        return out
+    by, bx = out.shape[-2], out.shape[-1]
+    # max-pool pads with -inf: past the edge never dilates inward
+    pooled = F.max_pool2d(out.float().reshape(-1, 1, by, bx), 2 * radius + 1, stride=1,
+                          padding=radius)
+    return pooled.reshape(out.shape) > 0
 
 
 def blockwise_reduce(images: torch.Tensor, block_size: int, reducer, *,

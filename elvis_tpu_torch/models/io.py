@@ -4,9 +4,11 @@ The shipped checkpoints reach the port as numpy ``.npz`` files under
 ``elvis_tpu_torch/weights/``: float32 arrays stored under their flax paths
 (``params/head/kernel``, ...), plus the model's hyper-parameters as
 scalars (``features`` and ``num_convs`` for the SR nets; ``features``,
-``levels`` and the trained ``max_strength`` for the deblur net).
+``levels`` and the trained ``max_strength`` for the deblur net;
+``features`` and ``temporal_window`` for the inpaint net).
 ``params_from_flax`` turns such a tree into a PyTorch state_dict (HWIO
-kernels -> OIHW); ``load_srnet`` and ``load_deblur`` build the models.
+kernels -> OIHW); ``load_srnet``, ``load_deblur`` and ``load_inpaint``
+build the models.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from elvis_tpu_torch.device import resolve_device
 from elvis_tpu_torch.models.deblur_unet import DeblurUNet
+from elvis_tpu_torch.models.inpaint_net import InpaintNet
 from elvis_tpu_torch.models.srnet import SRNetCompact
 
 __all__ = [
@@ -28,6 +31,7 @@ __all__ = [
     "read_npz",
     "load_srnet",
     "load_deblur",
+    "load_inpaint",
 ]
 
 
@@ -48,16 +52,24 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     dict) whose layers are all 2-D convs -> a state_dict for the port's
     module of the same layer names (SRNetCompact: ``head``, ``conv{i}``,
     ``up``, ``tail``; DeblurUNet: ``enc{i}a``, ``down{i}``, ``up{i}``, ...).
-    Conv kernels go HWIO -> OIHW; output channels keep the flax order."""
-    params = tree.get("params", tree)
+    A layer that holds sub-layers (InpaintNet's gated convs: ``enc0/Conv_0``)
+    becomes a dotted name (``enc0.Conv_0``). Conv kernels go HWIO -> OIHW;
+    output channels keep the flax order."""
     state = {}
-    for name, leaf in params.items():
-        kernel = np.asarray(leaf["kernel"], np.float32)
+
+    def walk(node: Mapping, prefix: str) -> None:
+        if "kernel" not in node:
+            for name, child in node.items():
+                walk(child, f"{prefix}{name}.")
+            return
+        kernel = np.asarray(node["kernel"], np.float32)
         if kernel.ndim != 4:
-            raise ValueError(f"{name}: expected an HWIO conv kernel, got {kernel.shape}")
-        state[f"{name}.weight"] = torch.from_numpy(
+            raise ValueError(f"{prefix[:-1]}: expected an HWIO conv kernel, got {kernel.shape}")
+        state[f"{prefix}weight"] = torch.from_numpy(
             np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
-        state[f"{name}.bias"] = torch.from_numpy(np.asarray(leaf["bias"], np.float32).copy())
+        state[f"{prefix}bias"] = torch.from_numpy(np.asarray(node["bias"], np.float32).copy())
+
+    walk(tree.get("params", tree), "")
     return state
 
 
@@ -94,5 +106,16 @@ def load_deblur(path: str, device: "str | torch.device" = "cuda") -> DeblurUNet:
     tree, meta = read_npz(path)
     model = DeblurUNet(features=int(meta["features"]), levels=int(meta["levels"]),
                        max_strength=float(meta["max_strength"]))
+    model.load_state_dict(params_from_flax(tree))
+    return model.to(dev).eval().requires_grad_(False)
+
+
+def load_inpaint(path: str, device: "str | torch.device" = "cuda") -> InpaintNet:
+    """An inference-ready InpaintNet (bf16 body) from a port weights file,
+    on ``device``."""
+    dev = resolve_device(device)
+    tree, meta = read_npz(path)
+    model = InpaintNet(features=int(meta["features"]),
+                       temporal_window=int(meta["temporal_window"]))
     model.load_state_dict(params_from_flax(tree))
     return model.to(dev).eval().requires_grad_(False)

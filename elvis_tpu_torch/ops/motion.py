@@ -170,7 +170,7 @@ def _median(x: torch.Tensor, dims, keepdim: bool = False) -> torch.Tensor:
     return out
 
 
-def _nanmedian(x: torch.Tensor, dims) -> torch.Tensor:
+def _nanmedian(x: torch.Tensor, dims, keepdim: bool = False) -> torch.Tensor:
     """``jnp.nanmedian`` over ``dims``: the median of the non-NaN values
     (mean of the two middle ones for an even count), NaN when there is none."""
     dims = sorted(d % x.dim() for d in dims)
@@ -181,7 +181,11 @@ def _nanmedian(x: torch.Tensor, dims) -> torch.Tensor:
     lo = torch.clamp((k - 1) // 2, min=0)
     hi = torch.clamp(k // 2, max=s.shape[-1] - 1)
     out = 0.5 * (torch.gather(s, -1, lo) + torch.gather(s, -1, hi))
-    return torch.where(k > 0, out, float("nan"))[..., 0]
+    out = torch.where(k > 0, out, float("nan"))[..., 0]
+    if keepdim:
+        for d in dims:
+            out = out.unsqueeze(d)
+    return out
 
 
 def subpel_refine(

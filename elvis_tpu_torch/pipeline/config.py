@@ -74,21 +74,6 @@ PENDING_FIELDS = {
     "realesrgan_fp32": 2,
     "instantir_seed": 2,
     "instantir_batch_size": 2,
-    # 3: restore_removal_temporal, InpaintNet, the 'temporal'/'neural' rows
-    "propainter_resize_ratio": 3,
-    "propainter_ref_stride": 3,
-    "propainter_neighbor_length": 3,
-    "propainter_subvideo_length": 3,
-    "propainter_mask_dilation": 3,
-    "propainter_parallel_chunk_length": 3,
-    "propainter_chunk_overlap": 3,
-    "e2fgvi_ref_stride": 3,
-    "e2fgvi_neighbor_stride": 3,
-    "e2fgvi_num_ref": 3,
-    "e2fgvi_mask_dilation": 3,
-    "e2fgvi_parallel_chunk_length": 3,
-    "e2fgvi_chunk_overlap": 3,
-    "inpaint_params_path": 3,
     # 4: ROI and external codecs
     "encode_preset": 4,
     "encode_pix_fmt": 4,
@@ -108,7 +93,6 @@ PENDING_FIELDS = {
 
 _ITEMS = {
     2: "the rest of the blur and SR backends",
-    3: "restore_removal_temporal, InpaintNet and the 'temporal'/'neural' inpaint backends",
     4: "ROI and external codecs",
     5: "DCT-dampen",
     6: "other metrics and models",
@@ -118,9 +102,9 @@ _ITEMS = {
 
 # backend and codec names the JAX package knows and the port does not yet
 _PENDING_NAMES = {
-    "inpaint_backends": ({"temporal", "neural", "inpaint_net", "e2fgvi"}, 3),
-    "sr_backends": ({"srnet", "srnet_4k", "srnet_ensemble", "ensemble", "lanczos", "hybrid",
-                     "level_seq", "naive_sr"}, 2),
+    # srnet_large: the tier the JAX package loads has no export in the port yet
+    "sr_backends": ({"srnet", "srnet_large", "srnet_4k", "srnet_ensemble", "ensemble",
+                     "lanczos", "hybrid", "level_seq", "naive_sr"}, 2),
     "deblur_backends": ({"diffusion", "naive_diffusion"}, 2),
     "codec": ({"x265", "kvazaar", "svtav1"}, 4),
     "saliency_backend": ({"neural"}, 6),

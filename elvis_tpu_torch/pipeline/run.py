@@ -20,6 +20,8 @@ tiles), so a 128-frame 1080p clip fits one card.
   Baseline               plain encode                codec.dispatch (nvc)
   PRESLEY QP             per-block delta-QP ROI      NVC's native QP map
   ELVIS CV2              classical inpaint           PDE diffusion fill
+  ELVIS ProPainter       flow-guided propagation     temporal propagation fill
+  ELVIS E2FGVI           learned video inpaint       InpaintNet over a temporal seed
   PRESLEY RealESRGAN     neural progressive SR       srnet_student (shipped)
   PRESLEY InstantIR      neural deblur               DeblurUNet (shipped)
   PRESLEY Lanczos        classical SR benchmark      per-block Lanczos
@@ -27,10 +29,9 @@ tiles), so a 128-frame 1080p clip fits one card.
   (+ extra rows per sr_backends/deblur_backends/inpaint_backends entries)
 
 Not ported yet, and refused by ``check_ported`` before stage 0: the
-'temporal' / 'neural' inpaint rows (ELVIS ProPainter, ELVIS E2FGVI), the
 external codecs, DCT-dampen (stage 6b), the mesh and spatial branches
 (``data_parallel`` shards nothing on one card, as in the JAX package on one
-chip).
+chip, and the per-stage device lists are pending).
 """
 
 from __future__ import annotations
@@ -233,6 +234,38 @@ def _apply_temporal(fn, arrays, overlap: int):
         out = _apply_height_tiled(fn, part, *tiled) if tiled else fn(*part)
         outs.append(out[s - lo: s - lo + (e - s)])
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _apply_inpaint_backend(name, fn, stretched, removal_mask, b, motion_field=None):
+    """Stage 8's driver for one inpaint backend (the one-card part of the
+    JAX package's ``_apply_inpaint_backend``).
+
+    'diffusion' is per-frame: plain frame chunks. A windowed backend runs
+    over frame chunks with its own ``temporal_overlap`` of context; the
+    motion field rides as one more frame-axis array, so a chunk's field is
+    sliced with its frames (a chunk's first per-pair entry is never used).
+    A backend with ``split`` runs in two phases, the seed and then its
+    ``post``, each at its own overlap: the net's feature maps never span the
+    seed's wide window. seed + post equals the fused backend."""
+    if name == "diffusion":
+        return _apply_framewise(lambda f, m: fn(f, m, b), stretched, removal_mask)
+
+    def windowed(g):
+        if motion_field is None:
+            call, arrays = (lambda f, m: g(f, m, b)), (stretched, removal_mask)
+        else:
+            call, arrays = ((lambda f, m, mv: g(f, m, b, mv=mv)),
+                            (stretched, removal_mask, motion_field))
+        return _apply_temporal(_carry_tiling(call, g), arrays,
+                               overlap=getattr(g, "temporal_overlap", 16))
+
+    split = getattr(fn, "split", None)
+    if split is None:
+        return windowed(fn)
+    seeded = windowed(split)
+    post = split.post
+    return _apply_temporal(_carry_tiling(lambda f, m: post(f, m, b), post),
+                           (seeded, removal_mask), overlap=getattr(post, "temporal_overlap", 2))
 
 
 def _rss_gb() -> float:
@@ -579,17 +612,28 @@ def _run_elvis_impl(config: ElvisConfig, dev: torch.device, stats: Optional[Dict
         "temporal": (APPROACHES.ELVIS_PROP, "ProPainter Inpainting"),
         "neural": (APPROACHES.ELVIS_E2FGVI, "E2FGVI Inpainting"),
     }
+    # the transmitted motion hint, expanded to the fill grid once and shared
+    # by every motion-consuming backend
+    inpaint_motion = None
+    if motion_gmv is not None and config.inpaint_motion_hint:
+        from elvis_tpu_torch.ops.motion import motion_field_from_hint
+
+        inpaint_motion = motion_field_from_hint(motion_gmv, motion_dev,
+                                                int(removal_mask.shape[1]),
+                                                int(removal_mask.shape[2]))
     for name in config.inpaint_backends:
         label, timer = _inpaint_labels.get(name, (f"ELVIS {name}", f"{name} Inpainting"))
-        fn, prov = resolve_inpaint_backend(name, config)
+        fn, prov = resolve_inpaint_backend(name, config, device=dev)
+        mv_arg = inpaint_motion if name != "diffusion" else None
+        if mv_arg is not None:
+            prov = f"{prov}+motion_hint"
         backend_provenance[label] = prov
         row_branch[label] = "shrunk"
         t0 = time.time()
-        # 'diffusion' is per-frame: plain frame chunks. (The motion-consuming
-        # backends, fed by motion_field_from_hint, come with ROADMAP item 3.)
         decoded[label] = _cached_restore(
             f"inpaint_{name}", prov,
-            lambda fn=fn: _apply_framewise(lambda f, m: fn(f, m, b), stretched, removal_mask))
+            lambda fn=fn, name=name, mv_arg=mv_arg: _apply_inpaint_backend(
+                name, fn, stretched, removal_mask, b, motion_field=mv_arg))
         approach_times[label] += stage_done(timer, t0)
 
     # --- stage 9: progressive SR restore -------------------------------------

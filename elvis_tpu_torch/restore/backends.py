@@ -1,13 +1,13 @@
 """Config-driven restoration backends (port of the single-tier SR part,
-the deblur part and the ``'diffusion'`` inpaint slot of
-``elvis_tpu.restore.backends``).
+the deblur part and the inpaint part of ``elvis_tpu.restore.backends``).
 
 Every resolved backend has the restorer signature
-``fn(frames, maps, block_size) -> frames``. Neural backends load the
+``fn(frames, maps, block_size) -> frames``; the windowed inpaint backends
+also take ``mv=`` (the expanded motion hint). Neural backends load the
 port's committed weights (``elvis_tpu_torch/weights/<name>.npz``); without
 the weights file an SR tier degrades to the classical progressive-Lanczos
-restorer and the deblur net to the unsharp mask, and the provenance string
-says so.
+restorer, the deblur net to the unsharp mask and the inpaint net to the
+temporal fill plus a short PDE pass, and the provenance string says so.
 """
 
 from __future__ import annotations
@@ -17,9 +17,12 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from elvis_tpu_torch.core.blocks import dilate_block_mask, upsample_map
 from elvis_tpu_torch.device import resolve_device
-from elvis_tpu_torch.models.io import load_deblur, load_srnet, weights_path
+from elvis_tpu_torch.models.io import load_deblur, load_inpaint, load_srnet, weights_path
 from elvis_tpu_torch.models.srnet import srnet_upsample_fn
+from elvis_tpu_torch.ops.resize import resize
+from elvis_tpu_torch.restore.inpaint import restore_removal_diffusion, restore_removal_temporal
 from elvis_tpu_torch.restore.progressive import lanczos_upsample_2x, progressive_restore
 from elvis_tpu_torch.restore.unsharp import restore_blur_unsharp
 
@@ -46,8 +49,14 @@ def default_params_path(name: str, configured: Optional[str], auto: bool) -> Opt
 def _srnet_upsampler(config, which: Optional[str], device) -> Tuple[Optional[Callable], str]:
     """(2x upsample_fn or None, provenance). ``which`` pins a tier; None
     takes the first tier whose weights exist. None => progressive Lanczos
-    (what a zero-initialized SRNet computes)."""
+    (what a zero-initialized SRNet computes). A pinned ``srnet_large``
+    raises while the port has no export of it: the JAX package loads that
+    tier, so Lanczos in its place would be another restorer."""
     auto = getattr(config, "auto_load_checkpoints", True)
+    if which == "srnet_large" and not config.srnet_params_path and not weights_path(which):
+        raise NotImplementedError(
+            "sr backend 'srnet_large': not ported yet (ROADMAP.md §1 item 2, the export of "
+            "weights/srnet_large.npz)")
     for name in (which,) if which else _TIERS:
         path = default_params_path(name, config.srnet_params_path, auto)
         if path:
@@ -85,8 +94,9 @@ def resolve_sr_backend(name: str, config,
         up, prov = _srnet_upsampler(config, None if name == "realesrgan" else name,
                                     resolve_device(device))
         if up is None:
-            return (lambda f, m, b: progressive_restore(f, m, b, upsample_fn=lanczos_upsample_2x),
-                    prov)
+            return knobs(
+                lambda f, m, b: progressive_restore(f, m, b, upsample_fn=lanczos_upsample_2x),
+                prov)
         return knobs(lambda f, m, b: progressive_restore(f, m, b, upsample_fn=up),
                      f"progressive_neural[{prov}]")
     raise ValueError(f"unknown SR backend {name!r}")
@@ -149,17 +159,140 @@ def resolve_deblur_backend(name: str, config,
     raise ValueError(f"unknown deblur backend {name!r}")
 
 
-def resolve_inpaint_backend(name: str, config) -> Tuple[BackendFn, str]:
-    """Removal-restoration backends: 'diffusion' (the PDE fill, the
-    counterpart of OpenCV's Telea fill). 'temporal' (motion propagation)
-    and 'neural' / 'inpaint_net' / 'e2fgvi' (InpaintNet over a temporal
-    seed) are not ported yet."""
-    from elvis_tpu_torch.restore.inpaint import restore_removal_diffusion
+def _with_hole_dilation(fn, dilation_px: int):
+    """Dilate the hole mask by ``dilation_px // block_size`` blocks before
+    restoring: the ProPainter/E2FGVI ``mask_dilation`` knobs, in pixels,
+    at block granularity (a sub-block dilation rounds down to none)."""
+    if int(dilation_px) <= 0:
+        return fn
 
+    def wrapped(f, m, b, *a, **kw):
+        r = int(dilation_px) // int(b)
+        if r > 0:
+            m = dilate_block_mask(m, r).to(m.dtype)
+        return fn(f, m, b, *a, **kw)
+
+    return wrapped
+
+
+def _with_resize_ratio(fn, ratio: float):
+    """Run an inpaint restorer at ``ratio`` of the input resolution, then
+    upscale and put back only the hole pixels (``propainter_resize_ratio``):
+    known pixels never round-trip the resize."""
+    if not 0 < float(ratio) < 1.0:
+        return fn
+
+    def wrapped(f, m, b, mv=None, **kw):
+        b_small = max(int(round(int(b) * float(ratio))), 1)
+        by, bx = m.shape[-2], m.shape[-1]
+        h, w = f.shape[1], f.shape[2]
+        small = resize(f.float(), (by * b_small, bx * b_small), method="area")
+        if mv is not None:  # pixel motion scales with the working resolution
+            mv = torch.round(mv.float() * (b_small / int(b))).to(torch.int32)
+        out = resize(fn(small, m, b_small, mv=mv, **kw).float(), (h, w), method="linear")
+        hole = upsample_map(m.bool(), int(b))[..., None]
+        out = torch.where(hole, out, f.float())
+        if not f.dtype.is_floating_point:
+            out = torch.clamp(torch.round(out), 0, 255)
+        return out.to(f.dtype)
+
+    return wrapped
+
+
+def _propainter_window(config) -> int:
+    """Propagation window from the ProPainter knobs: twice
+    ``neighbor_length`` frames each side, bounded so that 2w+1 frames fit
+    ``subvideo_length``."""
+    w = 2 * max(int(config.propainter_neighbor_length), 1)
+    cap = max((int(config.propainter_subvideo_length) - 1) // 2, 1)
+    return max(min(w, cap), 1)
+
+
+def _e2fgvi_window(config) -> int:
+    """Seed window from the E2FGVI knobs: its chunk overlap,
+    ``2 * neighbor_stride`` frames of context."""
+    return max(2 * int(config.e2fgvi_neighbor_stride), 1)
+
+
+def resolve_inpaint_backend(name: str, config,
+                            device: "str | torch.device" = "cuda") -> Tuple[BackendFn, str]:
+    """Removal-restoration backends: 'diffusion' (the PDE fill, the
+    counterpart of OpenCV's Telea fill), 'temporal' (motion propagation,
+    the ProPainter counterpart) and 'neural' / 'inpaint_net' / 'e2fgvi'
+    (InpaintNet over a temporal seed, the E2FGVI counterpart; without
+    weights the seed plus a 40-iteration PDE pass). The net's weights load
+    onto ``device``.
+
+    A windowed backend carries ``temporal_overlap``: the context frames a
+    frame chunk needs past each boundary for chunked == unchunked (twice the
+    window; the ``*_chunk_overlap`` fields override it), and ``frame_chunk``
+    from ``*_parallel_chunk_length``. The net's backend also carries
+    ``split``: the seed alone, at its overlap, whose ``post`` is the net
+    alone at the net's own window (2 frames) with a 16-row halo for height
+    tiling, so the net's feature maps never span the seed's wide window."""
     if name == "diffusion":
         return restore_removal_diffusion, "pde_diffusion"
-    if name in ("temporal", "neural", "inpaint_net", "e2fgvi"):
-        raise NotImplementedError(
-            f"inpaint backend {name!r}: not ported yet (ROADMAP.md §1 item 3, "
-            "restore_removal_temporal, InpaintNet and the 'temporal'/'neural' backends)")
+    if name == "temporal":
+        w = _propainter_window(config)
+        ov = int(config.propainter_chunk_overlap or 2 * w)
+        refs = int(config.propainter_ref_stride or 0)
+
+        def temporal(f, m, b, mv=None):
+            return restore_removal_temporal(f, m, b, window=w, ref_stride=refs, motion_field=mv)
+
+        temporal = _with_hole_dilation(temporal, int(config.propainter_mask_dilation or 0))
+        temporal = _with_resize_ratio(temporal, float(config.propainter_resize_ratio or 1.0))
+        temporal.temporal_overlap = ov
+        if config.propainter_parallel_chunk_length:
+            temporal.frame_chunk = int(config.propainter_parallel_chunk_length)
+        return temporal, f"temporal_propagation[window={w},overlap={ov},ref_stride={refs}]"
+    if name in ("neural", "inpaint_net", "e2fgvi"):
+        w = _e2fgvi_window(config)
+        ov = int(config.e2fgvi_chunk_overlap or 2 * w)
+        # the non-local reference set: every ref_stride-th frame, at most num_ref
+        refs = int(config.e2fgvi_ref_stride or 0)
+        nref = int(config.e2fgvi_num_ref)
+        dil = int(config.e2fgvi_mask_dilation or 0)
+        chunk = config.e2fgvi_parallel_chunk_length
+
+        def seed_fill(f, m, b, mv=None):
+            return restore_removal_temporal(f, m, b, window=w, ref_stride=refs, max_refs=nref,
+                                            motion_field=mv)
+
+        def knobs(fn, overlap=ov):
+            fn.temporal_overlap = overlap
+            if chunk:
+                fn.frame_chunk = int(chunk)
+            return fn
+
+        path = default_params_path("inpaint", config.inpaint_params_path,
+                                   getattr(config, "auto_load_checkpoints", True))
+        if not path:
+            def fallback(f, m, b, mv=None):
+                return restore_removal_diffusion(seed_fill(f, m, b, mv=mv), m, b, iters=40)
+
+            return (knobs(_with_hole_dilation(fallback, dil)),
+                    f"temporal+pde (no inpaint checkpoint)[window={w}]")
+        net = load_inpaint(path, resolve_device(device))
+
+        def net_fill(f, m, b):
+            with torch.inference_mode():
+                return net(f, m, b)
+
+        def neural(f, m, b, mv=None):
+            return net_fill(seed_fill(f, m, b, mv=mv).float(), m, b)
+
+        neural = knobs(_with_hole_dilation(neural, dil))
+        # seed + post == neural: the net's edge-clamped neighbour shifts
+        # reach only the outermost temporal_window frames of a window,
+        # which the post's own overlap trims
+        seed = knobs(_with_hole_dilation(lambda f, m, b, mv=None: seed_fill(f, m, b, mv).float(),
+                                         dil))
+        post = knobs(_with_hole_dilation(net_fill, dil), overlap=net.temporal_window)
+        # the net's receptive field: a 3x3 stack with one stride-2 level
+        # reaches ~12 rows; 16 is the block-aligned bound
+        post.spatial_halo_rows = 16
+        seed.post = post
+        neural.split = seed
+        return neural, f"inpaint_net:{path}[window={w},overlap={ov}]"
     raise ValueError(f"unknown inpaint backend {name!r}")

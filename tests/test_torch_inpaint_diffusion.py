@@ -79,15 +79,23 @@ def test_restore_removal_diffusion(dtype):
 
 
 def test_inpaint_backend_resolves_diffusion_only():
+    """'diffusion' resolves to the registered PDE fill; the windowed names
+    resolve too now, with the JAX package's provenance (the net's weights
+    file in place of its orbax directory); other names raise."""
+    from elvis_tpu.pipeline.config import ElvisConfig as JConfig
+
     cfg = ElvisConfig(inpaint_backends=["diffusion"])
-    fn, prov = tresolve("diffusion", cfg)
-    assert prov == jresolve("diffusion", cfg)[1] == "pde_diffusion"
+    fn, prov = tresolve("diffusion", cfg, device="cpu")
+    assert prov == jresolve("diffusion", JConfig())[1] == "pde_diffusion"
     assert fn is tinp.restore_removal_diffusion is get_restorer("removal", "diffusion")
+    assert get_restorer("removal", "temporal") is tinp.restore_removal_temporal
     for name in ("temporal", "neural", "inpaint_net", "e2fgvi"):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            tresolve(name, cfg)
+        t_fn, t_prov = tresolve(name, cfg, device="cpu")
+        j_fn, j_prov = jresolve(name, JConfig())
+        assert t_prov.split("[")[1:] == j_prov.split("[")[1:], name
+        assert t_fn.temporal_overlap == j_fn.temporal_overlap, name
     with pytest.raises(ValueError, match="unknown inpaint backend"):
-        tresolve("telea", cfg)
+        tresolve("telea", cfg, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])

@@ -123,8 +123,8 @@ def test_pending_field_raises_before_stage_zero(name, tmp_path):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("inpaint_backends", ["diffusion", "temporal"], 3),
-    ("inpaint_backends", ["neural"], 3),
+    ("sr_backends", ["srnet_large"], 2),
+    ("sr_backends", ["realesrgan", "srnet_large"], 2),
     ("sr_backends", ["srnet_ensemble"], 2),
     ("deblur_backends", ["deblur_net", "diffusion"], 2),
     ("codec", "x265", 4),
@@ -141,11 +141,23 @@ def test_pending_names_raise_before_stage_zero(field, value, item, tmp_path):
 
 
 def test_default_config_raises_for_its_temporal_rows():
-    """The default inpaint list names 'temporal' and 'neural'; the slice's
-    configuration is the default with inpaint_backends=['diffusion']."""
-    with pytest.raises(NotImplementedError, match="'temporal'"):
-        tcfg.check_ported(tcfg.ElvisConfig())
-    tcfg.check_ported(tcfg.ElvisConfig(inpaint_backends=["diffusion"]))
+    """The default config is ported whole: its inpaint list names
+    'temporal' and 'neural', which run now, and so do the ProPainter and
+    E2FGVI knobs set away from their defaults. The per-stage device lists
+    of those rows stay with item 7."""
+    tcfg.check_ported(tcfg.ElvisConfig())
+    assert tcfg.ElvisConfig().inpaint_backends == ["diffusion", "temporal", "neural"]
+    tcfg.check_ported(tcfg.ElvisConfig(
+        inpaint_backends=["diffusion", "temporal", "neural", "inpaint_net", "e2fgvi"],
+        propainter_resize_ratio=0.5, propainter_ref_stride=4, propainter_neighbor_length=2,
+        propainter_subvideo_length=9, propainter_mask_dilation=16,
+        propainter_parallel_chunk_length=4, propainter_chunk_overlap=6, e2fgvi_ref_stride=3,
+        e2fgvi_neighbor_stride=2, e2fgvi_num_ref=2, e2fgvi_mask_dilation=8,
+        e2fgvi_parallel_chunk_length=4, e2fgvi_chunk_overlap=6,
+        inpaint_params_path="w.npz"))
+    for name in ("propainter_devices", "e2fgvi_devices"):
+        with pytest.raises(NotImplementedError, match=rf"{name}=.*ROADMAP\.md §1 item 7"):
+            tcfg.check_ported(tcfg.ElvisConfig(**{name: [0]}))
 
 
 def test_cli_runs_on_the_card_only(tmp_path, monkeypatch):
@@ -174,3 +186,28 @@ def test_sr_runtime_knobs_ride_on_the_backend_as_in_jax(knobs):
     assert t_prov.startswith("progressive_neural[srnet_student:")
     for attr in ("spatial_halo_rows", "spatial_pixel_budget", "frame_chunk"):
         assert getattr(t_fn, attr, None) == getattr(j_fn, attr, None), attr
+
+
+def test_srnet_large_raises_and_the_lanczos_fallback_keeps_the_knobs():
+    """A pinned 'srnet_large' raises (item 2) while the port has no export
+    of it, where it used to run progressive Lanczos; the generic slot keeps
+    its first-existing-tier order. The Lanczos fallback carries the SR
+    runtime knobs as in JAX."""
+    from elvis_tpu.restore.backends import resolve_sr_backend as jresolve
+    from elvis_tpu_torch.models.io import weights_path
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend as tresolve
+
+    assert weights_path("srnet_large") is None
+    with pytest.raises(NotImplementedError, match=r"srnet_large.*ROADMAP\.md §1 item 2"):
+        tresolve("srnet_large", tcfg.ElvisConfig(), device="cpu")
+    _, prov = tresolve("realesrgan", tcfg.ElvisConfig(), device="cpu")
+    assert prov.startswith("progressive_neural[srnet_student:")
+    knobs = {"realesrgan_tile": 96, "realesrgan_tile_pad": 40,
+             "realesrgan_parallel_chunk_length": 3, "auto_load_checkpoints": False}
+    t_fn, t_prov = tresolve("realesrgan", tcfg.ElvisConfig(**knobs), device="cpu")
+    j_fn, j_prov = jresolve("realesrgan", jcfg.ElvisConfig(**knobs))
+    assert t_prov == j_prov == "lanczos (no SR checkpoint)"
+    for attr in ("spatial_halo_rows", "spatial_pixel_budget", "frame_chunk"):
+        assert getattr(t_fn, attr) == getattr(j_fn, attr), attr
+    assert (t_fn.spatial_halo_rows, t_fn.spatial_pixel_budget, t_fn.frame_chunk) == \
+        (40, 96 * 96, 3)

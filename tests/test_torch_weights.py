@@ -1,4 +1,4 @@
-"""The port's committed weights (SR nets, deblur net, LPIPS backbone)
+"""The port's committed weights (SR nets, deblur net, inpaint net, LPIPS backbone)
 against the orbax checkpoints they were exported from, and the port's
 import boundary.
 
@@ -7,12 +7,14 @@ Export (run once, from the repo root, where JAX and orbax are installed):
     python tests/test_torch_weights.py --write
 
 writes ``elvis_tpu_torch/weights/<name>.npz`` for each name in ``EXPORTS``,
-for ``deblur`` and for ``perceptual``: the flax param tree as float32 arrays
-under their ``params/<layer>/<leaf>`` paths, plus the model's
+for ``deblur``, ``inpaint`` and ``perceptual``: the flax param tree as
+float32 arrays under their ``params/<layer>/<leaf>`` paths (``inpaint``:
+``params/<layer>/Conv_0/<leaf>`` for its gated convs), plus the model's
 hyper-parameters (``features`` and ``num_convs``; for ``deblur``:
 ``features``, ``levels`` and the ``max_strength`` of
-``checkpoints/deblur.meta.json``; ``perceptual`` has none: its widths are
-its kernels' shapes).
+``checkpoints/deblur.meta.json``; for ``inpaint``: ``features`` and
+``temporal_window``; ``perceptual`` has none: its widths are its kernels'
+shapes).
 """
 
 import ast
@@ -28,6 +30,8 @@ REPO = Path(__file__).resolve().parents[1]
 EXPORTS = {"srnet_student": (256, 6), "srnet_compact": (128, 5)}
 # the shipped DeblurUNet is the flax default width and depth
 DEBLUR = {"features": 32, "levels": 3}
+# the shipped InpaintNet is the flax default width and window
+INPAINT = {"features": 32, "temporal_window": 2}
 
 
 def _flat(tree, prefix=""):
@@ -51,6 +55,11 @@ def orbax_params(name):
     if name == "deblur":  # the example args of restore.backends.resolve_deblur_backend
         return load_params(DeblurUNet(**DEBLUR), str(REPO / "checkpoints" / name),
                            jnp.zeros((1, 16, 16, 3)), jnp.zeros((1, 2, 2), jnp.int32), 8)
+    if name == "inpaint":  # the example args of restore.backends.resolve_inpaint_backend
+        from elvis_tpu.models import InpaintNet
+
+        return load_params(InpaintNet(**INPAINT), str(REPO / "checkpoints" / name),
+                           jnp.zeros((2, 16, 16, 3)), jnp.zeros((2, 2, 2), jnp.int8), 8)
     if name == "perceptual":  # the example args of metrics.perceptual
         from elvis_tpu.metrics.perceptual import PerceptualNet
 
@@ -72,6 +81,8 @@ def write_weights(name):
     if name == "deblur":
         meta = {"features": np.int64(DEBLUR["features"]), "levels": np.int64(DEBLUR["levels"]),
                 "max_strength": np.float64(deblur_max_strength())}
+    elif name == "inpaint":
+        meta = {k: np.int64(v) for k, v in INPAINT.items()}
     elif name == "perceptual":
         meta = {}
     else:
@@ -124,6 +135,37 @@ def test_committed_deblur_weights_equal_orbax_restore():
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
+def test_committed_inpaint_weights_equal_orbax_restore():
+    """Every array of the committed inpaint.npz equals the orbax restore
+    exactly, leaf for leaf: five gated convs (nested ``Conv_0``) and two
+    plain ones."""
+    from elvis_tpu_torch.models.io import read_npz, weights_path
+
+    path = weights_path("inpaint")
+    assert path is not None, "missing elvis_tpu_torch/weights/inpaint.npz"
+    tree, meta = read_npz(path)
+    assert meta == INPAINT
+    want = _flat(orbax_params("inpaint"))
+    got = _flat(tree)
+    assert sorted(got) == sorted(want) and len(want) == 16  # 8 convs
+    assert "params/enc0/Conv_0/kernel" in got
+    for key in want:
+        assert got[key].dtype == np.float32
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def test_load_inpaint_builds_the_shipped_net():
+    import torch
+
+    from elvis_tpu_torch.models.io import load_inpaint, weights_path
+
+    net = load_inpaint(weights_path("inpaint"), device="cpu")
+    assert (net.features, net.temporal_window) == (32, 2)
+    assert net.dtype == torch.bfloat16 and not net.training
+    assert not any(p.requires_grad for p in net.parameters())
+    assert net.enc0.Conv_0.weight.shape == (64, 16, 3, 3)
+
+
 def test_committed_perceptual_weights_equal_orbax_restore():
     """Every array of the committed perceptual.npz (the LPIPS backbone)
     equals the orbax restore exactly: five convs, no meta."""
@@ -173,6 +215,20 @@ def test_params_from_flax_layout():
     np.testing.assert_array_equal(sd["conv0.bias"].numpy(), bias)
 
 
+def test_params_from_flax_descends_into_nested_layers():
+    """A layer that holds a sub-layer (a gated conv's ``Conv_0``) becomes a
+    dotted state_dict name."""
+    from elvis_tpu_torch.models.io import params_from_flax
+
+    rng = np.random.default_rng(1)
+    k = rng.standard_normal((3, 3, 2, 6)).astype(np.float32)
+    bias = rng.standard_normal((6,)).astype(np.float32)
+    sd = params_from_flax({"params": {"enc0": {"Conv_0": {"kernel": k, "bias": bias}},
+                                      "up": {"kernel": k, "bias": bias}}})
+    assert sorted(sd) == ["enc0.Conv_0.bias", "enc0.Conv_0.weight", "up.bias", "up.weight"]
+    np.testing.assert_array_equal(sd["enc0.Conv_0.weight"].numpy(), k.transpose(3, 2, 0, 1))
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -206,5 +262,5 @@ if __name__ == "__main__":
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, str(REPO))
-    for n in (*EXPORTS, "deblur", "perceptual"):
+    for n in (*EXPORTS, "deblur", "inpaint", "perceptual"):
         print(write_weights(n))
