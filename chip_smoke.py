@@ -65,7 +65,16 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
      temporal fill with and without the motion hint, the E2FGVI seed, and
      the net's ``post`` as the stage drives it (height tiles) and in one
      call; then, on a centre crop, the temporal fill (with and without the
-     hint) and the net on the card held to the same calls on the CPU.
+     hint) and the net on the card held to the same calls on the CPU;
+  8. ``run_elvis`` at the same size with every remaining SR, deblur and
+     saliency name whose weights ship (``srnet_large``, ``srnet_4k``,
+     ``lanczos``, ``hybrid``, ``level_seq``, ``naive_sr``; ``diffusion``,
+     ``naive_diffusion``; ``saliency_backend="neural"``) and the DCT-dampen
+     branch, eighteen rows: stage times, peak memory by stage, the wall, no
+     out-of-memory fallback, six transform launches; then the diffusion
+     restore, the saliency net, ``dct_dampen`` and its inverse, the
+     ``srnet_large`` tier, ``level_seq`` and ``naive_sr`` each alone (CUDA
+     events, peak memory), and on a centre crop each held to the CPU.
 
 ``python3 chip_smoke.py --codec-only`` runs phase 5 alone (no kernel table,
 no ``ok`` line). ``python3 chip_smoke.py --profile`` adds, before phase 5, a
@@ -1193,6 +1202,28 @@ FILL_STAGES = ("ProPainter Inpainting", "E2FGVI Inpainting")
 CROP = (256, 512)
 NET_GREY_TOL = 1.0
 NET_RESIDUAL_TOL = 0.02
+# phase 8: every backend of the JAX package's remaining names whose weights
+# ship, on top of the default config
+BACKEND_NAMES = dict(
+    sr_backends=["realesrgan", "srnet_large", "srnet_4k", "lanczos", "hybrid", "level_seq",
+                 "naive_sr"],
+    deblur_backends=["deblur_net", "diffusion", "naive_diffusion"],
+    enable_dct_dampen=True, saliency_backend="neural")
+BACKEND_ROWS = ("Baseline", "PRESLEY QP", "ELVIS v2 Dampen", "ELVIS CV2", "ELVIS ProPainter",
+                "ELVIS E2FGVI", "PRESLEY RealESRGAN",
+                *(f"PRESLEY SR {n}" for n in BACKEND_NAMES["sr_backends"][1:]),
+                "PRESLEY InstantIR",
+                *(f"PRESLEY Deblur {n}" for n in BACKEND_NAMES["deblur_backends"][1:]),
+                "PRESLEY Lanczos", "PRESLEY Unsharp")
+# transform launches of that run: the downsample and blur degrades, the
+# 'lanczos' row, the Lanczos half of 'hybrid', the two classical rows
+BACKEND_TRANSFORM_LAUNCHES = 6
+# the diffusion restore on the card against the CPU (bf16 on both sides,
+# the same noise), grey levels: max abs and mean abs over the crop. The card
+# read 0.206 / 0.018 on this crop and 0.431 / 0.035 on the card test's clip,
+# against a mean change of the input of 3.7 and 7.6 grey levels
+DIFFUSION_MAX_GREY = 1.0
+DIFFUSION_MEAN_GREY = 0.1
 
 
 def _rows(results):
@@ -1491,6 +1522,160 @@ def phase_fills(smi_line, shrunk_stream, removal):
           f"the net on the card against the CPU: {apart['net post (bf16)']}")
 
 
+def phase_backends(smi_line):
+    """run_elvis at full width with every remaining SR, deblur and saliency
+    name whose weights ship and the DCT-dampen branch; then each new
+    restorer alone on the same clip (CUDA events, peak memory), and on a
+    centre crop the card held to the CPU. Returns the run's launches."""
+    import os
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    from elvis_tpu_torch.degrade import adaptive_blur, adaptive_downsample, dct_dampen
+    from elvis_tpu_torch.kernels import LAUNCHES
+    from elvis_tpu_torch.metrics import masked_psnr
+    from elvis_tpu_torch.pipeline import ElvisConfig, run_elvis
+    from elvis_tpu_torch.pipeline.run import _apply_framewise, _carry_tiling
+    from elvis_tpu_torch.restore import RestoreFallbackWarning, restore_dct_dampen_inverse
+    from elvis_tpu_torch.restore.backends import resolve_deblur_backend, resolve_sr_backend
+    from elvis_tpu_torch.scoring import get_saliency_fn, saliency_to_block_mask
+
+    with tempfile.TemporaryDirectory() as exp:
+        cfg = ElvisConfig(reference_video=f"synthetic://moving?frames={N}&fps=30", width=W,
+                          height=H, experiment_dir=exp, **BACKEND_NAMES)
+        torch.cuda.synchronize()
+        stats = {}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            run = run_elvis(cfg, device="cuda", stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+        check(os.path.isfile(os.path.join(exp, "maps", "dampen_maps.npz")),
+              "run_elvis wrote no dampen sidecar")
+    fallbacks = [str(w.message) for w in caught if issubclass(w.category, RestoreFallbackWarning)]
+    check(not fallbacks, f"an out-of-memory fallback fired: {fallbacks}")
+    times = run["execution_times_seconds"]
+    peaks = stats["stage_peak_bytes"]
+    print(f"[backends] run_elvis with {json.dumps(BACKEND_NAMES)}, {N} frames {W}x{H}, "
+          f"{smi_line}: {wall:.2f} s wall; peak max_memory_allocated {max(peaks.values())} "
+          f"bytes; no out-of-memory fallback")
+    print("[backends] execution_times_seconds: " + json.dumps(times))
+    print("[backends] peak max_memory_allocated by stage, bytes: " + json.dumps(peaks))
+    print("[backends] backends: " + json.dumps(run["parameters"]["derived"]["backends"]))
+    print(f"[backends] kernel launches in the run: {json.dumps(launches)}")
+    check(launches.get("block_transform", 0) == BACKEND_TRANSFORM_LAUNCHES,
+          f"{BACKEND_TRANSFORM_LAUNCHES} transform launches (two degrades, 'lanczos', "
+          f"'hybrid', two classical rows): {launches}")
+    rows = _rows(run)
+    check(rows == list(BACKEND_ROWS), f"rows {rows}")
+    for row in rows:
+        r = run[row]
+        for region in ("foreground", "background"):
+            for key in ("psnr_mean", "ssim_mean", "mse_mean", "lpips_mean", "fvmd"):
+                check(np.isfinite(r[region][key]), f"{row} {region} {key} = {r[region][key]}")
+        fg, bg = r["foreground"], r["background"]
+        print(f"[backends] {row:<31} {r['bitrate_mbps'] * 1e6:11.0f} bit/s; fg/bg PSNR "
+              f"{fg['psnr_mean']:.4f} / {bg['psnr_mean']:.4f} dB, SSIM {fg['ssim_mean']:.5f} / "
+              f"{bg['ssim_mean']:.5f}, LPIPS {fg['lpips_mean']:.5f} / {bg['lpips_mean']:.5f}, "
+              f"FVMD {fg['fvmd']:.4f} / {bg['fvmd']:.4f}")
+    check(run["ELVIS v2 Dampen"]["bitrate_mbps"] > 0, "the dampen row has no bits")
+
+    # each new restorer alone on the clip, as its stage drives it
+    clip = make_clip(torch.device("cuda"))
+    base = ElvisConfig()
+    scores, _ = score(clip, base)
+    blurred, blur_lv = adaptive_blur(clip, scores, B, base.gaussian_max_rounds)
+    down, down_lv = adaptive_downsample(clip, scores, B)
+    damped, damp_lv = dct_dampen(clip, scores, B)
+    sal_fn = get_saliency_fn("neural")
+    diffusion, _ = resolve_deblur_backend("diffusion", base, device="cuda")
+    sr = {n: resolve_sr_backend(n, base, device="cuda")[0]
+          for n in ("srnet_large", "level_seq", "naive_sr")}
+
+    def staged(fn):
+        return lambda f, m: _apply_framewise(_carry_tiling(lambda a, b: fn(a, b, B), fn), f, m)
+
+    parts = {
+        f"diffusion restore_adaptive, 20 steps, {diffusion.frame_chunk} frames a call":
+            lambda: staged(diffusion)(blurred, blur_lv),
+        "saliency net": lambda: sal_fn(clip),
+        "dct_dampen": lambda: dct_dampen(clip, scores, B)[0],
+        "dct_dampen inverse": lambda: restore_dct_dampen_inverse(damped, damp_lv, B),
+        **{f"{n} restore": (lambda fn=fn: staged(fn)(down, down_lv)) for n, fn in sr.items()},
+    }
+    alone = {}
+    for label, fn in parts.items():
+        ms, peak = _timed_with_peak(fn)
+        out = fn()
+        check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite values")
+        alone[label] = {"ms": round(ms, 3), "peak_bytes": peak}
+    print(f"[backends] {N}x{H}x{W}, each alone (CUDA events, mean of 3 after one warm-up; peak "
+          f"max_memory_allocated above what was held), {smi_line}: " + json.dumps(alone))
+
+    # card against CPU on a centre crop (the diffusion and SR nets on its
+    # first two frames: a CPU pass of the whole crop takes minutes)
+    ch, cw = CROP
+    y0 = (H // 2 - ch // 2) // (2 * B) * (2 * B)
+    x0 = (W // 2 - cw // 2) // (2 * B) * (2 * B)
+    rows_, cols = slice(y0, y0 + ch), slice(x0, x0 + cw)
+    brows, bcols = slice(y0 // B, (y0 + ch) // B), slice(x0 // B, (x0 + cw) // B)
+    apart = {}
+    c_clip, c_scores = clip[:, rows_, cols], scores[:, brows, bcols]
+    d_card, l_card = dct_dampen(c_clip, c_scores, B)
+    d_cpu, l_cpu = dct_dampen(c_clip.cpu(), c_scores.cpu(), B)
+    i_card = restore_dct_dampen_inverse(d_card, l_card, B).cpu()
+    i_cpu = restore_dct_dampen_inverse(d_card.cpu(), l_card.cpu(), B)
+    apart["dct_dampen"] = {"levels_equal": bool(torch.equal(l_card.cpu(), l_cpu)),
+                           "max_lsb": int((d_card.cpu().int() - d_cpu.int()).abs().max()),
+                           "inverse_max_lsb": int((i_card.int() - i_cpu.int()).abs().max())}
+    check(apart["dct_dampen"]["levels_equal"] and apart["dct_dampen"]["max_lsb"] <= 1
+          and apart["dct_dampen"]["inverse_max_lsb"] <= 1,
+          f"dct_dampen card vs CPU: {apart['dct_dampen']} (levels equal, within 1 LSB)")
+    s_card = sal_fn(c_clip).cpu()
+    s_cpu = get_saliency_fn("neural")(c_clip.cpu())
+    agree = float((saliency_to_block_mask(s_card, B) == saliency_to_block_mask(s_cpu, B))
+                  .float().mean())
+    apart["saliency net"] = {"max_abs": float((s_card - s_cpu).abs().max()),
+                             "block_masks_agree": agree}
+    check(agree >= 0.995, f"saliency block masks card vs CPU agree on {agree:.4%} (>= 99.5%)")
+
+    c_blur, c_blv = blurred[:2, rows_, cols], blur_lv[:2, brows, bcols]
+    noise = torch.randn(c_blur.shape, generator=torch.Generator().manual_seed(SEED))
+    net = diffusion.net
+    cpu_net, _ = resolve_deblur_backend("diffusion", base, device="cpu")
+    r_card = net.restore_adaptive(c_blur, c_blv, B, noise=noise.cuda()).cpu()
+    r_cpu = cpu_net.net.restore_adaptive(c_blur.cpu(), c_blv.cpu(), B, noise=noise)
+    err = (r_card - r_cpu).abs()
+    change = float((r_cpu - c_blur.cpu().float()).abs().mean())
+    apart["diffusion restore_adaptive (bf16)"] = {
+        "max_abs_grey": float(err.max()), "mean_abs_grey": float(err.mean()),
+        "cpu_mean_change_of_input_grey": change}
+    # an identity restorer's mean error would be the change itself
+    check(float(err.max()) <= DIFFUSION_MAX_GREY and float(err.mean()) <= DIFFUSION_MEAN_GREY
+          < change,
+          f"diffusion card vs CPU: {apart['diffusion restore_adaptive (bf16)']} (max <= "
+          f"{DIFFUSION_MAX_GREY}, mean <= {DIFFUSION_MEAN_GREY} grey levels, and the restore "
+          f"moves the input by more than {DIFFUSION_MEAN_GREY} on average)")
+
+    c_down, c_dlv = down[:2, rows_, cols], down_lv[:2, brows, bcols]
+    large_cpu, _ = resolve_sr_backend("srnet_large", base, device="cpu")
+    g_card = sr["srnet_large"](c_down, c_dlv, B).cpu()
+    g_cpu = large_cpu(c_down.cpu(), c_dlv.cpu(), B)
+    ref = clip[:2, rows_, cols].cpu()
+    p_err = float((masked_psnr(ref, g_card) - masked_psnr(ref, g_cpu)).abs().max())
+    apart["srnet_large restore"] = {"max_lsb": int((g_card.int() - g_cpu.int()).abs().max()),
+                                    "psnr_apart_db": p_err}
+    check(p_err <= 0.05, f"srnet_large card vs CPU: PSNR apart {p_err} dB (tol 0.05)")
+    print(f"[backends] card vs CPU on a {N}x{ch}x{cw} crop at ({y0}, {x0}) (diffusion and "
+          f"srnet_large: its first 2 frames): " + json.dumps(apart))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1531,6 +1716,8 @@ def main() -> int:
     launches_pipeline, shrunk_stream, removal = phase_pipeline(smi_line)
     starting("7 fills")
     phase_fills(smi_line, shrunk_stream, removal)
+    starting("8 backends")
+    launches_backends = phase_backends(smi_line)
     starting("kernel table")
     # the transform kernel's headline row is what the paths launch: uint8
     # frames, b=8, the main path's table; the batched kernel's is the block
@@ -1542,7 +1729,8 @@ def main() -> int:
         rows = all_rows[kname]
         by_path = {"main": launches_main.get(kname, 0), "blur": launches_blur.get(kname, 0),
                    "codec": launches_codec.get(kname, 0),
-                   "pipeline": launches_pipeline.get(kname, 0)}
+                   "pipeline": launches_pipeline.get(kname, 0),
+                   "backends": launches_backends.get(kname, 0)}
         uint8_rows = [r for r in rows if r.get("uint8_pixels_differing") is not None]
         kernels.append({
             "name": kname,

@@ -5,6 +5,7 @@ from elvis_tpu_torch.degrade.adaptive import (
     blur_levels_from_scores,
     downsample_levels_from_scores,
 )
+from elvis_tpu_torch.degrade.dct_dampen import dampen_levels_from_scores, dct_dampen
 from elvis_tpu_torch.degrade.removal import apply_selective_removal, stretch_frames
 
 __all__ = [
@@ -13,6 +14,8 @@ __all__ = [
     "adaptive_downsample_scale",
     "apply_selective_removal",
     "blur_levels_from_scores",
+    "dampen_levels_from_scores",
+    "dct_dampen",
     "downsample_levels_from_scores",
     "stretch_frames",
 ]

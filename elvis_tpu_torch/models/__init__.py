@@ -1,5 +1,7 @@
 from elvis_tpu_torch.models.deblur_unet import DeblurUNet
+from elvis_tpu_torch.models.diffusion import DiffusionRestorer
 from elvis_tpu_torch.models.inpaint_net import InpaintNet
+from elvis_tpu_torch.models.saliency_net import SaliencyNet, make_neural_saliency_fn
 from elvis_tpu_torch.models.srnet import (
     SRNetCompact,
     SRNetLarge,
@@ -7,5 +9,5 @@ from elvis_tpu_torch.models.srnet import (
     srnet_upsample_fn,
 )
 
-__all__ = ["DeblurUNet", "InpaintNet", "SRNetCompact", "SRNetLarge", "srnet_phase_fn",
-           "srnet_upsample_fn"]
+__all__ = ["DeblurUNet", "DiffusionRestorer", "InpaintNet", "SaliencyNet", "SRNetCompact",
+           "SRNetLarge", "make_neural_saliency_fn", "srnet_phase_fn", "srnet_upsample_fn"]

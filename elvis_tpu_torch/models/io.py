@@ -5,9 +5,11 @@ The shipped checkpoints reach the port as numpy ``.npz`` files under
 (``params/head/kernel``, ...), plus the model's hyper-parameters as
 scalars (``features`` and ``num_convs`` for the SR nets; ``features``,
 ``levels`` and the trained ``max_strength`` for the deblur net;
-``features`` and ``temporal_window`` for the inpaint net).
+``features`` and ``temporal_window`` for the inpaint net; ``features`` for
+the saliency net and the diffusion UNet).
 ``params_from_flax`` turns such a tree into a PyTorch state_dict (HWIO
-kernels -> OIHW); ``load_srnet``, ``load_deblur`` and ``load_inpaint``
+kernels -> OIHW, dense kernels transposed); ``load_srnet``,
+``load_deblur``, ``load_inpaint``, ``load_saliency`` and ``load_diffusion``
 build the models.
 """
 
@@ -21,7 +23,9 @@ import torch
 
 from elvis_tpu_torch.device import resolve_device
 from elvis_tpu_torch.models.deblur_unet import DeblurUNet
+from elvis_tpu_torch.models.diffusion import DiffusionRestorer
 from elvis_tpu_torch.models.inpaint_net import InpaintNet
+from elvis_tpu_torch.models.saliency_net import SaliencyNet
 from elvis_tpu_torch.models.srnet import SRNetCompact
 
 __all__ = [
@@ -32,6 +36,8 @@ __all__ = [
     "load_srnet",
     "load_deblur",
     "load_inpaint",
+    "load_saliency",
+    "load_diffusion",
 ]
 
 
@@ -49,12 +55,13 @@ def weights_path(name: str) -> Optional[str]:
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """A flax param tree of numpy arrays (``{'params': {...}}`` or its inner
-    dict) whose layers are all 2-D convs -> a state_dict for the port's
-    module of the same layer names (SRNetCompact: ``head``, ``conv{i}``,
-    ``up``, ``tail``; DeblurUNet: ``enc{i}a``, ``down{i}``, ``up{i}``, ...).
-    A layer that holds sub-layers (InpaintNet's gated convs: ``enc0/Conv_0``)
-    becomes a dotted name (``enc0.Conv_0``). Conv kernels go HWIO -> OIHW;
-    output channels keep the flax order."""
+    dict) whose layers are 2-D convs or dense layers -> a state_dict for the
+    port's module of the same layer names (SRNetCompact: ``head``,
+    ``conv{i}``, ``up``, ``tail``; DeblurUNet: ``enc{i}a``, ``down{i}``,
+    ``up{i}``, ...). A layer that holds sub-layers (InpaintNet's gated convs:
+    ``enc0/Conv_0``) becomes a dotted name (``enc0.Conv_0``). Conv kernels go
+    HWIO -> OIHW, dense kernels ``(in, out)`` -> ``(out, in)``; output
+    channels keep the flax order."""
     state = {}
 
     def walk(node: Mapping, prefix: str) -> None:
@@ -63,10 +70,11 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 walk(child, f"{prefix}{name}.")
             return
         kernel = np.asarray(node["kernel"], np.float32)
-        if kernel.ndim != 4:
-            raise ValueError(f"{prefix[:-1]}: expected an HWIO conv kernel, got {kernel.shape}")
-        state[f"{prefix}weight"] = torch.from_numpy(
-            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+        if kernel.ndim not in (2, 4):
+            raise ValueError(f"{prefix[:-1]}: expected an HWIO conv or a dense kernel, "
+                             f"got {kernel.shape}")
+        order = (3, 2, 0, 1) if kernel.ndim == 4 else (1, 0)
+        state[f"{prefix}weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(order)))
         state[f"{prefix}bias"] = torch.from_numpy(np.asarray(node["bias"], np.float32).copy())
 
     walk(tree.get("params", tree), "")
@@ -118,4 +126,24 @@ def load_inpaint(path: str, device: "str | torch.device" = "cuda") -> InpaintNet
     model = InpaintNet(features=int(meta["features"]),
                        temporal_window=int(meta["temporal_window"]))
     model.load_state_dict(params_from_flax(tree))
+    return model.to(dev).eval().requires_grad_(False)
+
+
+def load_saliency(path: str, device: "str | torch.device" = "cuda") -> SaliencyNet:
+    """An inference-ready SaliencyNet (bf16 body) from a port weights file,
+    on ``device``."""
+    dev = resolve_device(device)
+    tree, meta = read_npz(path)
+    model = SaliencyNet(features=int(meta["features"]))
+    model.load_state_dict(params_from_flax(tree))
+    return model.to(dev).eval().requires_grad_(False)
+
+
+def load_diffusion(path: str, device: "str | torch.device" = "cuda") -> DiffusionRestorer:
+    """An inference-ready DiffusionRestorer (bf16 UNet body) from a port
+    weights file, on ``device``."""
+    dev = resolve_device(device)
+    tree, meta = read_npz(path)
+    model = DiffusionRestorer(features=int(meta["features"]))
+    model.unet.load_state_dict(params_from_flax(tree))
     return model.to(dev).eval().requires_grad_(False)

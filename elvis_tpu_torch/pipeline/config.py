@@ -70,15 +70,9 @@ ABSORBED_FIELDS = {
 # item that brings it. Set away from its default, each raises in
 # ``check_ported`` before stage 0.
 PENDING_FIELDS = {
-    # 2: the rest of the blur and SR backends
-    "realesrgan_fp32": 2,
-    "instantir_seed": 2,
-    "instantir_batch_size": 2,
     # 4: ROI and external codecs
     "encode_preset": 4,
     "encode_pix_fmt": 4,
-    # 5: DCT-dampen
-    "enable_dct_dampen": 5,
     # 7: parallel (device subsets and the spatial mesh axis)
     "propainter_devices": 7,
     "e2fgvi_devices": 7,
@@ -92,22 +86,17 @@ PENDING_FIELDS = {
 }
 
 _ITEMS = {
-    2: "the rest of the blur and SR backends",
+    2: "RRDB SRNet and the SR ensemble",
     4: "ROI and external codecs",
-    5: "DCT-dampen",
-    6: "other metrics and models",
     7: "parallel",
     8: "train, search, CLI extras",
 }
 
 # backend and codec names the JAX package knows and the port does not yet
 _PENDING_NAMES = {
-    # srnet_large: the tier the JAX package loads has no export in the port yet
-    "sr_backends": ({"srnet", "srnet_large", "srnet_4k", "srnet_ensemble", "ensemble",
-                     "lanczos", "hybrid", "level_seq", "naive_sr"}, 2),
-    "deblur_backends": ({"diffusion", "naive_diffusion"}, 2),
+    # RRDB SRNet (checkpoints/srnet) has no export yet; the ensemble averages it in
+    "sr_backends": ({"srnet", "srnet_ensemble", "ensemble"}, 2),
     "codec": ({"x265", "kvazaar", "svtav1"}, 4),
-    "saliency_backend": ({"neural"}, 6),
 }
 
 

@@ -3,9 +3,9 @@
 
 Stages, approach labels and the ``analysis_results.json`` schema are the
 JAX package's: preprocessing, removability, baseline encode, ELVIS shrink,
-ROI encode, downsample branch, blur branch, client stretch + inpainting,
-SR restore, deblur restore, bitrate accounting, classical benchmarks,
-evaluation.
+ROI encode, downsample branch, blur branch, DCT-dampen branch (when
+``enable_dct_dampen``), client stretch + inpainting, SR restore, deblur
+restore, bitrate accounting, classical benchmarks, evaluation.
 
 The clip is ONE uint8 tensor on the device; every stage runs there and the
 only host work is entropy coding (NVC), the sidecars, the stage cache and
@@ -26,12 +26,13 @@ tiles), so a 128-frame 1080p clip fits one card.
   PRESLEY InstantIR      neural deblur               DeblurUNet (shipped)
   PRESLEY Lanczos        classical SR benchmark      per-block Lanczos
   PRESLEY Unsharp        classical deblur benchmark  unsharp mask
+  ELVIS v2 Dampen        DCT dampening (optional)    inverse filter
   (+ extra rows per sr_backends/deblur_backends/inpaint_backends entries)
 
-Not ported yet, and refused by ``check_ported`` before stage 0: the
-external codecs, DCT-dampen (stage 6b), the mesh and spatial branches
-(``data_parallel`` shards nothing on one card, as in the JAX package on one
-chip, and the per-stage device lists are pending).
+Not ported yet, and refused by ``check_ported`` before stage 0: RRDB
+SRNet and the SR ensemble, the external codecs, the mesh and spatial
+branches (``data_parallel`` shards nothing on one card, as in the JAX
+package on one chip, and the per-stage device lists are pending).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from elvis_tpu_torch.codec import (
 )
 from elvis_tpu_torch.codec.dispatch import make_pipeline_codec
 from elvis_tpu_torch.degrade import adaptive_blur, adaptive_downsample, stretch_frames
+from elvis_tpu_torch.degrade.dct_dampen import dct_dampen
 from elvis_tpu_torch.device import resolve_device
 from elvis_tpu_torch.metrics.evaluate import analyze_encoding_performance
 from elvis_tpu_torch.metrics.report import format_summary_report
@@ -65,6 +67,7 @@ from elvis_tpu_torch.pipeline.config import ElvisConfig, check_ported
 from elvis_tpu_torch.pipeline.io import load_clip, save_frames_png
 from elvis_tpu_torch.restore import (
     restore_blur_unsharp,
+    restore_dct_dampen_inverse,
     restore_downsample_lanczos,
     temporal_blend,
 )
@@ -586,6 +589,23 @@ def _run_elvis_impl(config: ElvisConfig, dev: torch.device, stats: Optional[Dict
     blur_maps_path, sidecar_sizes["gaussian"] = _save_maps(r["levels"], "gaussian")
     approach_times[APPROACHES.PRESLEY_INSTANTIR] += stage_done("Gaussian Encoding", t0)
 
+    # --- stage 6b: DCT-dampen branch (the "ELVIS v2" of the reference's README)
+    if config.enable_dct_dampen:
+        t0 = time.time()
+
+        def _dampen():
+            damp_frames, damp_levels = _degrade_chunked(lambda f, sc: dct_dampen(f, sc, b))
+            s = codec.encode(damp_frames, **enc_kw)
+            return {"stream": s, "decoded": codec.decode(s), "levels": damp_levels}
+
+        r = cache.get_or_run("dampen_encode", _branch_key, _dampen, device=dev)
+        streams["dampened"] = r["stream"]
+        damp_maps_path, sidecar_sizes["dampen"] = _save_maps(r["levels"], "dampen")
+        decoded[APPROACHES.ELVIS_V2_DAMPEN] = _apply_framewise(
+            as_pixels_u8(lambda f, m: restore_dct_dampen_inverse(f, m, b)),
+            r["decoded"], _load_maps(damp_maps_path))
+        approach_times[APPROACHES.ELVIS_V2_DAMPEN] += stage_done("DCT Dampen Branch", t0)
+
     # --- stage 7: client stretch ---------------------------------------------
     t0 = time.time()
     stretched = _apply_framewise(lambda f, m: stretch_frames(f, m, b), shrunk_decoded,
@@ -686,6 +706,9 @@ def _run_elvis_impl(config: ElvisConfig, dev: torch.device, stats: Optional[Dict
         APPROACHES.PRESLEY_REALESRGAN: len(streams["downsampled"]) + sidecar_sizes["downsample"],
         APPROACHES.PRESLEY_INSTANTIR: len(streams["gaussian"]) + sidecar_sizes["gaussian"],
     }
+    if config.enable_dct_dampen:
+        video_sizes[APPROACHES.ELVIS_V2_DAMPEN] = (len(streams["dampened"])
+                                                   + sidecar_sizes["dampen"])
     bitrates = {k: size * 8 / duration for k, size in video_sizes.items()}
     _branch_sizes = {
         "shrunk": video_sizes[APPROACHES.ELVIS],

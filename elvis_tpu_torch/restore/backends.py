@@ -1,13 +1,14 @@
-"""Config-driven restoration backends (port of the single-tier SR part,
-the deblur part and the inpaint part of ``elvis_tpu.restore.backends``).
+"""Config-driven restoration backends (port of
+``elvis_tpu.restore.backends``, less RRDB ``SRNet`` and the ensemble).
 
 Every resolved backend has the restorer signature
 ``fn(frames, maps, block_size) -> frames``; the windowed inpaint backends
 also take ``mv=`` (the expanded motion hint). Neural backends load the
 port's committed weights (``elvis_tpu_torch/weights/<name>.npz``); without
 the weights file an SR tier degrades to the classical progressive-Lanczos
-restorer, the deblur net to the unsharp mask and the inpaint net to the
-temporal fill plus a short PDE pass, and the provenance string says so.
+restorer, the deblur net and the diffusion restorer to the unsharp mask
+and the inpaint net to the temporal fill plus a short PDE pass, and the
+provenance string says so.
 """
 
 from __future__ import annotations
@@ -18,11 +19,24 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from elvis_tpu_torch.core.blocks import dilate_block_mask, upsample_map
-from elvis_tpu_torch.device import resolve_device
-from elvis_tpu_torch.models.io import load_deblur, load_inpaint, load_srnet, weights_path
+from elvis_tpu_torch.device import full_fp32, resolve_device
+from elvis_tpu_torch.models.io import (
+    load_deblur,
+    load_diffusion,
+    load_inpaint,
+    load_srnet,
+    weights_path,
+)
 from elvis_tpu_torch.models.srnet import srnet_upsample_fn
 from elvis_tpu_torch.ops.resize import resize
+from elvis_tpu_torch.restore.hybrid import blended_restoration
 from elvis_tpu_torch.restore.inpaint import restore_removal_diffusion, restore_removal_temporal
+from elvis_tpu_torch.restore.lanczos import restore_downsample_lanczos
+from elvis_tpu_torch.restore.level_seq import (
+    level_sequential_restore,
+    naive_diffusion_restore,
+    naive_sr_restore,
+)
 from elvis_tpu_torch.restore.progressive import lanczos_upsample_2x, progressive_restore
 from elvis_tpu_torch.restore.unsharp import restore_blur_unsharp
 
@@ -32,8 +46,10 @@ __all__ = ["resolve_sr_backend", "resolve_deblur_backend", "resolve_inpaint_back
 BackendFn = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 
 # single tiers, measured-best first (the JAX package's order without the
-# ensemble, which is not ported yet)
+# ensemble and RRDB, which are not ported yet)
 _TIERS = ("srnet_student", "srnet_large", "srnet_compact")
+# SR names whose model (RRDB SRNet, checkpoints/srnet) has no export yet
+_PENDING_SR = ("srnet", "srnet_ensemble", "ensemble")
 
 
 def default_params_path(name: str, configured: Optional[str], auto: bool) -> Optional[str]:
@@ -46,34 +62,63 @@ def default_params_path(name: str, configured: Optional[str], auto: bool) -> Opt
     return weights_path(name)
 
 
+def _with_full_fp32(up: Callable) -> Callable:
+    """``up`` (and its ``phase_fn``) run with every float32 product at full
+    float32 precision: ``realesrgan_fp32``, the counterpart of the JAX
+    package's ``default_matmul_precision("float32")``. The SR nets' tails
+    and the Lanczos base already run so; the bf16 trunk is untouched."""
+
+    def fp32(x):
+        with full_fp32():
+            return up(x)
+
+    phase = getattr(up, "phase_fn", None)
+    if phase is not None:
+        def fp32_phase(x):
+            with full_fp32():
+                return phase(x)
+
+        fp32.phase_fn = fp32_phase
+    return fp32
+
+
 def _srnet_upsampler(config, which: Optional[str], device) -> Tuple[Optional[Callable], str]:
     """(2x upsample_fn or None, provenance). ``which`` pins a tier; None
     takes the first tier whose weights exist. None => progressive Lanczos
-    (what a zero-initialized SRNet computes). A pinned ``srnet_large``
-    raises while the port has no export of it: the JAX package loads that
-    tier, so Lanczos in its place would be another restorer."""
+    (what a zero-initialized SRNet computes). ``realesrgan_fp32`` appends
+    ``+fp32`` to a loaded tier's provenance, as in the JAX package."""
+    if which == "srnet_4k":
+        # the 4K tier needs a trained finisher (checkpoints/srnet_4k in the
+        # JAX package); none ships, so both packages run progressive Lanczos
+        return None, "lanczos (no 4k finisher checkpoint)"
     auto = getattr(config, "auto_load_checkpoints", True)
-    if which == "srnet_large" and not config.srnet_params_path and not weights_path(which):
-        raise NotImplementedError(
-            "sr backend 'srnet_large': not ported yet (ROADMAP.md §1 item 2, the export of "
-            "weights/srnet_large.npz)")
     for name in (which,) if which else _TIERS:
         path = default_params_path(name, config.srnet_params_path, auto)
         if path:
-            return srnet_upsample_fn(load_srnet(path, device)), f"{name}:{path}"
+            up, prov = srnet_upsample_fn(load_srnet(path, device)), f"{name}:{path}"
+            if getattr(config, "realesrgan_fp32", False):
+                return _with_full_fp32(up), f"{prov}+fp32"
+            return up, prov
     return None, "lanczos (no SR checkpoint)"
 
 
 def resolve_sr_backend(name: str, config,
                        device: "str | torch.device" = "cuda") -> Tuple[BackendFn, str]:
-    """Downsample-restoration backends: 'realesrgan' (the measured-best
-    shipped tier), 'srnet_student', 'srnet_large', 'srnet_compact' (each
-    progressive neural, falling back to Lanczos without weights) and
-    'progressive_lanczos'. Neural weights load onto ``device``.
+    """Downsample-restoration backends: 'realesrgan' / 'progressive_neural'
+    (the measured-best shipped tier), 'srnet_student', 'srnet_large',
+    'srnet_compact' (each progressive neural, falling back to Lanczos
+    without weights), 'srnet_4k' (progressive Lanczos: no 4K finisher
+    ships), 'progressive_lanczos', 'lanczos' (per block, through the
+    transform kernel), 'hybrid' (per-block Lanczos plus 0.1 x the
+    progressive neural result, weighted by level), 'level_seq' (per level:
+    an area resize by ``2**level``, then ``level`` upsamples) and
+    'naive_sr' (map-blind whole-frame 2x SR, then an area resize back).
+    Neural weights load onto ``device``.
 
-    The config's SR runtime knobs ride on the returned function for the
-    pipeline's stage driver: ``realesrgan_tile`` (> 0) asks for height
-    tiling at ``tile * tile`` pixels a call with a halo of
+    The config's SR runtime knobs ride on every returned function but
+    'lanczos' and 'progressive_lanczos', as in the JAX package:
+    ``realesrgan_tile`` (> 0) asks the stage driver for height tiling at
+    ``tile * tile`` pixels a call with a halo of
     ``max(32, realesrgan_tile_pad)`` rows, ``realesrgan_parallel_chunk_length``
     bounds the frames a call."""
 
@@ -87,27 +132,70 @@ def resolve_sr_backend(name: str, config,
             fn.frame_chunk = int(chunk)
         return fn, prov
 
+    def lanczos_progressive(f, m, b):
+        return progressive_restore(f, m, b, upsample_fn=lanczos_upsample_2x)
+
+    if name in _PENDING_SR:
+        raise NotImplementedError(
+            f"sr backend {name!r}: not ported yet (ROADMAP.md §1 item 2, RRDB SRNet and the "
+            "ensemble)")
     if name == "progressive_lanczos":
-        return (lambda f, m, b: progressive_restore(f, m, b, upsample_fn=lanczos_upsample_2x),
-                "progressive_lanczos")
-    if name == "realesrgan" or name in _TIERS:
-        up, prov = _srnet_upsampler(config, None if name == "realesrgan" else name,
-                                    resolve_device(device))
+        return lanczos_progressive, "progressive_lanczos"
+    if name == "lanczos":
+        return restore_downsample_lanczos, "lanczos"
+    dev = resolve_device(device)
+    if name in ("realesrgan", "progressive_neural", "srnet_4k") or name in _TIERS:
+        which = None if name in ("realesrgan", "progressive_neural") else name
+        up, prov = _srnet_upsampler(config, which, dev)
         if up is None:
-            return knobs(
-                lambda f, m, b: progressive_restore(f, m, b, upsample_fn=lanczos_upsample_2x),
-                prov)
+            return knobs(lanczos_progressive, prov)
         return knobs(lambda f, m, b: progressive_restore(f, m, b, upsample_fn=up),
                      f"progressive_neural[{prov}]")
-    raise ValueError(f"unknown SR backend {name!r}")
+    if name not in ("hybrid", "level_seq", "naive_sr"):
+        raise ValueError(f"unknown SR backend {name!r}")
+    up, prov = _srnet_upsampler(config, None, dev)
+    if name == "naive_sr":
+        return knobs(lambda f, m, b: naive_sr_restore(f, m, b, upsample_fn=up),
+                     f"naive_sr[{prov}]")
+    up = up or lanczos_upsample_2x
+    if name == "hybrid":
+        def hybrid(f, m, b):
+            classical = restore_downsample_lanczos(f, m, b)
+            neural = progressive_restore(f, m, b, upsample_fn=up)
+            return blended_restoration(classical, neural, m, b, alpha=0.1)
+
+        return knobs(hybrid, f"hybrid[lanczos + 0.1*{prov}]")
+
+    def per_level(frames, lvl):
+        h, w = frames.shape[-3], frames.shape[-2]
+        small = resize(frames.float(), (h // 2**lvl, w // 2**lvl), method="area")
+        for _ in range(lvl):
+            small = up(small)
+        return small
+
+    def level_seq(f, m, b):
+        max_level = max(int(m.max()), 1)  # host metadata
+        return level_sequential_restore(per_level, f, m, b, max_level)
+
+    return knobs(level_seq, f"level_seq[{prov}]")
 
 
 def resolve_deblur_backend(name: str, config,
                            device: "str | torch.device" = "cuda") -> Tuple[BackendFn, str]:
     """Blur-restoration backends: 'deblur_net' (alias 'neural', 'instantir':
     the trained DeblurUNet, conditioned with the ``max_strength`` its
-    weights file records; the unsharp mask without weights) and 'unsharp'
-    (classical). The net's weights load onto ``device``.
+    weights file records; the unsharp mask without weights), 'unsharp'
+    (classical), 'diffusion' (the shipped DiffusionRestorer's adaptive
+    restore at ``gaussian_max_rounds``; the unsharp mask without weights)
+    and 'naive_diffusion' (the untrained sampler on whole frames). The
+    nets' weights load onto ``device``.
+
+    'diffusion' draws its SDEdit noise on every call from a fresh
+    ``torch.Generator`` on the frames' device seeded ``instantir_seed``
+    (0 when None), in the chunk's shape: every chunk of one shape gets the
+    same noise, whatever the chunk order, as the JAX package's one key
+    gives. Its frames per call are ``instantir_batch_size``, bounded
+    further by ``instantir_parallel_chunk_length``.
 
     A backend returns frames in the input dtype (uint8 in: rounded and
     clipped uint8 out). The net bounds its own memory: it runs
@@ -153,9 +241,30 @@ def resolve_deblur_backend(name: str, config,
         deblur.spatial_halo_rows = 64
         deblur.spatial_pixel_budget = 3 << 20
         return knobs(deblur, f"deblur_net:{path}")
-    if name in ("diffusion", "naive_diffusion"):
-        raise ValueError(f"deblur backend {name!r} is not ported yet: it needs the "
-                         "diffusion restorer (models/diffusion.py)")
+    if name == "diffusion":
+        path = default_params_path("diffusion", None, auto)
+        if not path:
+            # an untrained diffusion model hallucinates noise: never a fallback
+            return knobs(unsharp, "unsharp (no diffusion checkpoint)")
+        model = load_diffusion(path, resolve_device(device))
+        seed = 0 if config.instantir_seed is None else int(config.instantir_seed)
+
+        def diffusion(f, m, b):
+            gen = torch.Generator(device=f.device).manual_seed(seed)
+            out = model.restore_adaptive(f, m, b, max_rounds=max_rounds, generator=gen)
+            if not f.dtype.is_floating_point:
+                out = torch.clamp(torch.round(out), 0, 255)
+            return out.to(f.dtype)
+
+        batch = int(config.instantir_batch_size or 0)
+        if batch > 0:
+            diffusion.frame_chunk = min(batch, int(stage_chunk)) if stage_chunk else batch
+        elif stage_chunk:
+            diffusion.frame_chunk = int(stage_chunk)
+        diffusion.net = model
+        return diffusion, f"diffusion:{path}[seed={seed}]"
+    if name == "naive_diffusion":
+        return knobs(lambda f, m, b: naive_diffusion_restore(f, m, b), "naive_diffusion")
     raise ValueError(f"unknown deblur backend {name!r}")
 
 

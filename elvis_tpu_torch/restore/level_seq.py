@@ -1,6 +1,5 @@
-"""Level-sequential adaptive restore and the naive whole-frame SR restorer
-(port of ``elvis_tpu.restore.level_seq``; the whole-frame diffusion
-restorer comes with the diffusion model).
+"""Level-sequential adaptive restore and the naive whole-frame restorers
+(port of ``elvis_tpu.restore.level_seq``).
 
   * level-sequential: run a restorer once per degradation level (passing
     the level), then per block take the output of the matching level's
@@ -9,6 +8,8 @@ restorer comes with the diffusion model).
   * naive SR: apply a 2x upsampler to the whole frame, ignoring the block
     maps, then area-resize back. A benchmark for how much the map-aware
     paths help.
+  * naive diffusion: the diffusion sampler on the whole frame, ignoring
+    the maps, under the out-of-memory policy of ``registry.safe_restore``.
 """
 
 from __future__ import annotations
@@ -18,11 +19,12 @@ from typing import Callable, Optional
 import torch
 
 from elvis_tpu_torch.core.blocks import combine_blocks, split_into_blocks
+from elvis_tpu_torch.models.diffusion import DiffusionRestorer
 from elvis_tpu_torch.ops.resize import resize
 from elvis_tpu_torch.restore.progressive import lanczos_upsample_2x
-from elvis_tpu_torch.restore.registry import register_restorer
+from elvis_tpu_torch.restore.registry import register_restorer, safe_restore
 
-__all__ = ["level_sequential_restore", "naive_sr_restore"]
+__all__ = ["level_sequential_restore", "naive_sr_restore", "naive_diffusion_restore"]
 
 
 def _finalize(dtype: torch.dtype, out: torch.Tensor) -> torch.Tensor:
@@ -53,4 +55,35 @@ def naive_sr_restore(frames: torch.Tensor, level_maps: torch.Tensor, block_size:
     up = upsample_fn or lanczos_upsample_2x
     h, w = frames.shape[-3], frames.shape[-2]
     out = resize(up(frames.float()), (h, w), method="area")
+    return _finalize(frames.dtype, out)
+
+
+def _untrained_restorer(device: torch.device) -> DiffusionRestorer:
+    """A DiffusionRestorer as initialized before training: conv and dense
+    kernels drawn (LeCun normal) from ``torch.Generator().manual_seed(0)``,
+    biases and the ``eps`` head zero. With the head zero every x0
+    prediction is the clipped conditioning, whatever the other weights."""
+    model = DiffusionRestorer(features=32)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.unet.named_parameters():
+            if name.startswith("eps.") or name.endswith(".bias"):
+                p.zero_()
+            else:
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
+    return model.to(device).eval().requires_grad_(False)
+
+
+@register_restorer("blur", "naive_diffusion")
+def naive_diffusion_restore(frames: torch.Tensor, level_maps: torch.Tensor, block_size: int,
+                            *, model: Optional[DiffusionRestorer] = None,
+                            steps: int = 4) -> torch.Tensor:
+    """Whole-frame diffusion restore (map-blind), ``steps`` DDIM steps of
+    ``model`` (the untrained restorer when None, as in the JAX package);
+    on a card out of memory, the input (``registry.safe_restore``)."""
+    d = model if model is not None else _untrained_restorer(frames.device)
+    out, err = safe_restore(lambda f: d.sample(f.float(), steps=steps), frames)
+    if err is not None:
+        return frames
     return _finalize(frames.dtype, out)

@@ -1,12 +1,14 @@
 """Foreground saliency slot (port of ``elvis_tpu.scoring.saliency``).
 
 A saliency function maps ``frames (N, H, W, C)`` -> ``mask (N, H, W)``
-float in [0, 1] (>= 0.5 means foreground), registered by name. The
-neural backend is not ported yet.
+float in [0, 1] (>= 0.5 means foreground), registered by name: the
+heuristics ``center_prior`` and ``motion_contrast``, and ``neural``, the
+shipped SaliencyNet (``models.saliency_net``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict
 
 import torch
@@ -20,6 +22,7 @@ __all__ = [
     "get_saliency_fn",
     "center_prior_saliency",
     "motion_contrast_saliency",
+    "neural_saliency",
     "saliency_to_block_mask",
 ]
 
@@ -86,6 +89,27 @@ def motion_contrast_saliency(frames: torch.Tensor) -> torch.Tensor:
     sal = sal * center_prior_saliency(frames) ** 0.5
     sal = gaussian_blur(sal[..., None], 5, 2.0)[..., 0]
     return _norm01(sal)
+
+
+@functools.lru_cache(maxsize=4)
+def _neural_saliency_fn(device: torch.device) -> SaliencyFn:
+    """The shipped SaliencyNet on ``device``, loaded once per process and
+    device; the motion-contrast heuristic when its weights file is absent
+    (an untrained segmenter is not a usable mask source)."""
+    from elvis_tpu_torch.models.io import load_saliency, weights_path
+    from elvis_tpu_torch.models.saliency_net import make_neural_saliency_fn
+
+    path = weights_path("saliency")
+    if path is None:
+        return motion_contrast_saliency
+    return make_neural_saliency_fn(load_saliency(path, device))
+
+
+@register_saliency("neural")
+def neural_saliency(frames: torch.Tensor) -> torch.Tensor:
+    """SaliencyNet (the UFO slot) on the frames' device; see
+    ``_neural_saliency_fn`` for the load-once and fallback policy."""
+    return _neural_saliency_fn(frames.device)(frames)
 
 
 def saliency_to_block_mask(saliency: torch.Tensor, block_size: int,

@@ -19,6 +19,8 @@ on clips of this kind), so a tighter bar would test the rounding, not the
 port.
 """
 
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -226,8 +228,17 @@ def test_backend_knobs_and_frame_chunks(torch_side):
 
 @pytest.mark.parametrize("name", ["diffusion", "naive_diffusion"])
 def test_diffusion_backends_say_they_are_not_ported(name):
-    with pytest.raises(ValueError, match="not ported yet"):
-        tresolve(name, TConfig(), device="cpu")
+    """Both names are ported now (they raised "not ported yet" before): each
+    resolves with the JAX package's provenance, the weights file in place
+    of the checkpoint directory, and its frames a call; without weights
+    'diffusion' degrades to the unsharp mask under JAX's provenance."""
+    for kw in ({"instantir_parallel_chunk_length": 3}, {"instantir_batch_size": 2},
+               {"auto_load_checkpoints": False}):
+        t_fn, t_prov = tresolve(name, TConfig(**kw), device="cpu")
+        j_fn, j_prov = jresolve(name, JConfig(**kw))
+        assert t_prov == re.sub(r"/checkpoints/(\w+)", r"/elvis_tpu_torch/weights/\1.npz",
+                                j_prov), kw
+        assert getattr(t_fn, "frame_chunk", None) == getattr(j_fn, "frame_chunk", None), kw
 
 
 def test_unknown_backend_and_missing_card():

@@ -633,3 +633,104 @@ def test_run_elvis_on_card_matches_cpu(tmp_path):
             assert abs(a[region]["ssim_mean"] - b[region]["ssim_mean"]) <= 2e-3, (row, region)
             assert abs(a[region]["lpips_mean"] - b[region]["lpips_mean"]) <= 1e-3, (row, region)
             assert np.isfinite(a[region]["fvmd"]), (row, region)
+
+
+# the diffusion restore on the card against the CPU, bf16 on both sides and
+# the same noise, grey levels (as chip_smoke.py phase 8 holds it). The card
+# read max 0.431, mean 0.035 here, with a CPU change of the input of 7.6
+DIFFUSION_MAX_GREY = 1.0
+DIFFUSION_MEAN_GREY = 0.1
+
+
+def _smooth_clip(n, h, w, seed=0):
+    """uint8 frames: a bilinear upscale of noise (smooth content)."""
+    rng = np.random.default_rng(seed)
+    small = torch.as_tensor(rng.integers(0, 256, (n, 3, h // 8, w // 8)).astype(np.float32))
+    big = torch.nn.functional.interpolate(small, size=(h, w), mode="bilinear",
+                                          align_corners=False)
+    return torch.clamp(torch.round(big), 0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+
+
+@pytest.mark.gpu
+def test_dct_dampen_on_card_matches_cpu():
+    """Levels equal; the dampened frames and the inverse within 1 LSB."""
+    from elvis_tpu_torch.degrade import dct_dampen
+    from elvis_tpu_torch.restore import restore_dct_dampen_inverse
+
+    dev = _cuda()
+    frames = _smooth_clip(4, 64, 96)
+    scores = torch.as_tensor(np.random.default_rng(1).random((4, 8, 12)).astype(np.float32))
+    d_card, l_card = dct_dampen(frames.to(dev), scores.to(dev), 8)
+    d_cpu, l_cpu = dct_dampen(frames, scores, 8)
+    assert torch.equal(l_card.cpu(), l_cpu)
+    assert (d_card.cpu().int() - d_cpu.int()).abs().max() <= 1
+    i_card = restore_dct_dampen_inverse(d_card, l_card, 8).cpu()
+    i_cpu = restore_dct_dampen_inverse(d_cpu, l_cpu, 8)
+    assert (i_card.int() - i_cpu.int()).abs().max() <= 1
+
+
+@pytest.mark.gpu
+def test_saliency_net_on_card_matches_cpu():
+    """The 'neural' backend's block masks agree on at least 99.5% of blocks."""
+    from elvis_tpu_torch.scoring import get_saliency_fn, saliency_to_block_mask
+
+    dev = _cuda()
+    frames = _smooth_clip(6, 64, 96, seed=2)
+    sal = get_saliency_fn("neural")
+    card, cpu = sal(frames.to(dev)).cpu(), sal(frames)
+    print(f"saliency net card vs CPU: max abs {float((card - cpu).abs().max()):.4g}")
+    agree = (saliency_to_block_mask(card, 8) == saliency_to_block_mask(cpu, 8)).float().mean()
+    assert float(agree) >= 0.995
+
+
+@pytest.mark.gpu
+def test_diffusion_restore_on_card_matches_cpu():
+    """restore_adaptive (20 steps) with the same noise: max and mean error
+    within the bounds, and the restore moves the input by more than the
+    mean bound (an identity restorer fails)."""
+    from elvis_tpu_torch.models.io import load_diffusion, weights_path
+
+    dev = _cuda()
+    frames = _smooth_clip(2, 64, 96, seed=3)
+    levels = torch.as_tensor(np.random.default_rng(3).integers(0, 11, (2, 8, 12)),
+                             dtype=torch.int32)
+    noise = torch.randn(frames.shape, generator=torch.Generator().manual_seed(0))
+    card_net = load_diffusion(weights_path("diffusion"), device=dev)
+    cpu_net = load_diffusion(weights_path("diffusion"), device="cpu")
+    card = card_net.restore_adaptive(frames.to(dev), levels.to(dev), 8, noise=noise.to(dev))
+    cpu = cpu_net.restore_adaptive(frames, levels, 8, noise=noise)
+    err = (card.cpu() - cpu).abs()
+    change = float((cpu - frames.float()).abs().mean())
+    print(f"diffusion card vs CPU: max {float(err.max()):.4g}, mean {float(err.mean()):.4g} "
+          f"grey levels; CPU change of the input {change:.4g}")
+    assert float(err.max()) <= DIFFUSION_MAX_GREY
+    assert float(err.mean()) <= DIFFUSION_MEAN_GREY < change
+
+
+@pytest.mark.gpu
+def test_naive_diffusion_on_card_returns_its_input():
+    from elvis_tpu_torch.restore import naive_diffusion_restore
+
+    dev = _cuda()
+    frames = _smooth_clip(2, 64, 96, seed=4).to(dev)
+    out = naive_diffusion_restore(frames, torch.zeros((2, 8, 12), device=dev), 8)
+    assert torch.equal(out, frames)
+
+
+@pytest.mark.gpu
+def test_srnet_large_on_card_matches_cpu():
+    """The srnet_large tier: restored PSNR within 0.05 dB (the bound of the
+    main path's crop check in chip_smoke.py)."""
+    from elvis_tpu_torch.metrics import masked_psnr
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+
+    dev = _cuda()
+    frames = _smooth_clip(2, 64, 96, seed=5)
+    levels = torch.as_tensor(np.random.default_rng(5).integers(0, 4, (2, 8, 12)),
+                             dtype=torch.int32)
+    card_fn, _ = resolve_sr_backend("srnet_large", ElvisConfig(), device=dev)
+    cpu_fn, _ = resolve_sr_backend("srnet_large", ElvisConfig(), device="cpu")
+    card = card_fn(frames.to(dev), levels.to(dev), 8).cpu()
+    cpu = cpu_fn(frames, levels, 8)
+    assert float((masked_psnr(frames, card) - masked_psnr(frames, cpu)).abs().max()) <= 0.05

@@ -15,6 +15,7 @@ import json
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -123,12 +124,12 @@ def test_pending_field_raises_before_stage_zero(name, tmp_path):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("sr_backends", ["srnet_large"], 2),
-    ("sr_backends", ["realesrgan", "srnet_large"], 2),
+    ("sr_backends", ["srnet"], 2),
+    ("sr_backends", ["realesrgan", "srnet"], 2),
     ("sr_backends", ["srnet_ensemble"], 2),
-    ("deblur_backends", ["deblur_net", "diffusion"], 2),
+    ("sr_backends", ["realesrgan", "ensemble"], 2),
     ("codec", "x265", 4),
-    ("saliency_backend", "neural", 6),
+    ("codec", "svtav1", 4),
 ])
 def test_pending_names_raise_before_stage_zero(field, value, item, tmp_path):
     from elvis_tpu_torch.pipeline import run_elvis
@@ -189,21 +190,25 @@ def test_sr_runtime_knobs_ride_on_the_backend_as_in_jax(knobs):
 
 
 def test_srnet_large_raises_and_the_lanczos_fallback_keeps_the_knobs():
-    """A pinned 'srnet_large' raises (item 2) while the port has no export
-    of it, where it used to run progressive Lanczos; the generic slot keeps
-    its first-existing-tier order. The Lanczos fallback carries the SR
-    runtime knobs as in JAX."""
+    """A pinned 'srnet_large' loads the exported tier (256 x 8, with JAX's
+    provenance) and carries the SR runtime knobs, where it raised while the
+    port had no export of it; the generic slot keeps its first-existing-tier
+    order. The Lanczos fallback carries the knobs as in JAX."""
     from elvis_tpu.restore.backends import resolve_sr_backend as jresolve
     from elvis_tpu_torch.models.io import weights_path
     from elvis_tpu_torch.restore.backends import resolve_sr_backend as tresolve
 
-    assert weights_path("srnet_large") is None
-    with pytest.raises(NotImplementedError, match=r"srnet_large.*ROADMAP\.md §1 item 2"):
-        tresolve("srnet_large", tcfg.ElvisConfig(), device="cpu")
+    knobs = {"realesrgan_tile": 96, "realesrgan_tile_pad": 40,
+             "realesrgan_parallel_chunk_length": 3}
+    t_fn, t_prov = tresolve("srnet_large", tcfg.ElvisConfig(**knobs), device="cpu")
+    assert t_prov == f"progressive_neural[srnet_large:{weights_path('srnet_large')}]"
+    assert (t_fn.spatial_halo_rows, t_fn.spatial_pixel_budget, t_fn.frame_chunk) == \
+        (40, 96 * 96, 3)
+    frames = torch.zeros((1, 16, 16, 3), dtype=torch.uint8)
+    assert t_fn(frames, torch.ones((1, 2, 2), dtype=torch.int32), 8).shape == frames.shape
     _, prov = tresolve("realesrgan", tcfg.ElvisConfig(), device="cpu")
     assert prov.startswith("progressive_neural[srnet_student:")
-    knobs = {"realesrgan_tile": 96, "realesrgan_tile_pad": 40,
-             "realesrgan_parallel_chunk_length": 3, "auto_load_checkpoints": False}
+    knobs["auto_load_checkpoints"] = False
     t_fn, t_prov = tresolve("realesrgan", tcfg.ElvisConfig(**knobs), device="cpu")
     j_fn, j_prov = jresolve("realesrgan", jcfg.ElvisConfig(**knobs))
     assert t_prov == j_prov == "lanczos (no SR checkpoint)"
@@ -211,3 +216,71 @@ def test_srnet_large_raises_and_the_lanczos_fallback_keeps_the_knobs():
         assert getattr(t_fn, attr) == getattr(j_fn, attr), attr
     assert (t_fn.spatial_halo_rows, t_fn.spatial_pixel_budget, t_fn.frame_chunk) == \
         (40, 96 * 96, 3)
+
+
+# fields and names ported in this slice: check_ported takes each, and the
+# backend it names resolves and runs on a small clip
+PORTED_CASES = [
+    ("realesrgan_fp32", True), ("instantir_seed", 7), ("instantir_batch_size", 2),
+    ("enable_dct_dampen", True), ("saliency_backend", "neural"),
+    *(("sr_backends", ["realesrgan", n]) for n in ("lanczos", "hybrid", "level_seq",
+                                                    "naive_sr", "srnet_large", "srnet_4k")),
+    *(("deblur_backends", ["deblur_net", n]) for n in ("diffusion", "naive_diffusion")),
+]
+
+
+@pytest.mark.parametrize("field,value", PORTED_CASES)
+def test_ported_field_or_name_runs(field, value):
+    from elvis_tpu_torch.degrade import dct_dampen
+    from elvis_tpu_torch.restore import restore_dct_dampen_inverse
+    from elvis_tpu_torch.restore.backends import resolve_deblur_backend, resolve_sr_backend
+    from elvis_tpu_torch.scoring import get_saliency_fn
+
+    cfg = tcfg.ElvisConfig(**{field: value})
+    tcfg.check_ported(cfg)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, 16, 16, 3)).astype(np.uint8))
+    maps = torch.from_numpy(rng.integers(0, 3, (2, 2, 2)).astype(np.int32))
+    if field == "enable_dct_dampen":
+        damped, levels = dct_dampen(frames, maps / 3.0, 8)
+        out = restore_dct_dampen_inverse(damped, levels, 8)
+    elif field == "saliency_backend":
+        out = get_saliency_fn(value)(frames)
+        assert out.shape == frames.shape[:3]
+    else:
+        resolve = resolve_sr_backend if field in ("sr_backends", "realesrgan_fp32") \
+            else resolve_deblur_backend
+        name = value[-1] if isinstance(value, list) else (
+            "realesrgan" if field == "realesrgan_fp32" else "diffusion")
+        fn, prov = resolve(name, cfg, device="cpu")
+        out = fn(frames, maps, 8)
+        assert out.shape == frames.shape and out.dtype == torch.uint8
+        if field == "instantir_seed":
+            assert prov.endswith("[seed=7]")
+        if field == "instantir_batch_size":
+            assert fn.frame_chunk == 2
+        if field == "realesrgan_fp32":
+            assert prov.endswith("+fp32]")
+    assert bool(torch.isfinite(out.float()).all())
+
+
+def test_run_elvis_takes_every_ported_field_and_name(tmp_path):
+    """One port run with every field and name of ``PORTED_CASES`` at once:
+    no NotImplementedError, every row finite."""
+    from elvis_tpu_torch.pipeline import run_elvis
+
+    kw = {field: value for field, value in PORTED_CASES if not isinstance(value, list)}
+    for field in ("sr_backends", "deblur_backends"):
+        names = [v[-1] for f, v in PORTED_CASES if f == field]
+        kw[field] = [("realesrgan" if field == "sr_backends" else "deblur_net"), *names]
+    cfg = tcfg.ElvisConfig(reference_video="synthetic://moving?frames=4&fps=30", width=48,
+                           height=32, inpaint_backends=["diffusion"], enable_vmaf=False,
+                           enable_fvmd=False, stage_cache=False, verbose=False,
+                           target_bitrate_override=50_000, experiment_dir=str(tmp_path), **kw)
+    r = run_elvis(cfg, device="cpu")
+    rows = [k for k, v in r.items() if isinstance(v, dict) and "foreground" in v]
+    assert len(rows) == 16 and "ELVIS v2 Dampen" in rows
+    for row in rows:
+        assert np.isfinite(r[row]["foreground"]["psnr_mean"]), row
+    assert r["parameters"]["derived"]["backends"]["PRESLEY Deblur diffusion"].endswith(
+        "[seed=7]")

@@ -1,20 +1,21 @@
-"""The port's committed weights (SR nets, deblur net, inpaint net, LPIPS backbone)
-against the orbax checkpoints they were exported from, and the port's
-import boundary.
+"""The port's committed weights (SR nets, deblur net, inpaint net, LPIPS backbone,
+saliency net, diffusion UNet) against the orbax checkpoints they were
+exported from, and the port's import boundary.
 
 Export (run once, from the repo root, where JAX and orbax are installed):
 
     python tests/test_torch_weights.py --write
 
 writes ``elvis_tpu_torch/weights/<name>.npz`` for each name in ``EXPORTS``,
-for ``deblur``, ``inpaint`` and ``perceptual``: the flax param tree as
-float32 arrays under their ``params/<layer>/<leaf>`` paths (``inpaint``:
-``params/<layer>/Conv_0/<leaf>`` for its gated convs), plus the model's
-hyper-parameters (``features`` and ``num_convs``; for ``deblur``:
-``features``, ``levels`` and the ``max_strength`` of
-``checkpoints/deblur.meta.json``; for ``inpaint``: ``features`` and
-``temporal_window``; ``perceptual`` has none: its widths are its kernels'
-shapes).
+for ``deblur``, ``inpaint``, ``perceptual``, ``saliency`` and
+``diffusion``: the flax param tree as float32 arrays under their
+``params/<layer>/<leaf>`` paths (``inpaint``: ``params/<layer>/Conv_0/<leaf>``
+for its gated convs), plus the model's hyper-parameters (``features`` and
+``num_convs``; for ``deblur``: ``features``, ``levels`` and the
+``max_strength`` of ``checkpoints/deblur.meta.json``; for ``inpaint``:
+``features`` and ``temporal_window``; for ``saliency`` and ``diffusion``:
+``features``; ``perceptual`` has none: its widths are its kernels' shapes).
+One file alone: ``python tests/test_torch_weights.py --write <name>``.
 """
 
 import ast
@@ -23,15 +24,20 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 # name -> (features, num_convs); the student's width/depth come from its
-# checkpoints/srnet_student.meta.json, srnet_compact is the flax default
-EXPORTS = {"srnet_student": (256, 6), "srnet_compact": (128, 5)}
+# checkpoints/srnet_student.meta.json, srnet_compact is the flax default,
+# srnet_large is SRNetLarge()
+EXPORTS = {"srnet_student": (256, 6), "srnet_compact": (128, 5), "srnet_large": (256, 8)}
 # the shipped DeblurUNet is the flax default width and depth
 DEBLUR = {"features": 32, "levels": 3}
 # the shipped InpaintNet is the flax default width and window
 INPAINT = {"features": 32, "temporal_window": 2}
+# the shipped SaliencyNet and diffusion UNet are the flax default widths
+SALIENCY = {"features": 24}
+DIFFUSION = {"features": 32}
 
 
 def _flat(tree, prefix=""):
@@ -65,6 +71,22 @@ def orbax_params(name):
 
         return load_params(PerceptualNet(), str(REPO / "checkpoints" / name),
                            jnp.zeros((1, 64, 64, 3)))
+    if name == "saliency":  # the example args of scoring.saliency
+        from elvis_tpu.models import SaliencyNet
+
+        return load_params(SaliencyNet(**SALIENCY), str(REPO / "checkpoints" / name),
+                           np.zeros((2, 16, 16, 3), np.float32))
+    if name == "diffusion":  # the abstract tree of restore.backends' 'diffusion'
+        import jax
+        import orbax.checkpoint as ocp
+
+        from elvis_tpu.models import DiffusionRestorer
+        from elvis_tpu.models.io import host_params
+
+        d = DiffusionRestorer(**DIFFUSION)
+        abstract = jax.eval_shape(lambda: d.init(jax.random.PRNGKey(0)))
+        return host_params(ocp.StandardCheckpointer().restore(
+            str(REPO / "checkpoints" / name), abstract))
     feats, convs = EXPORTS[name]
     model = SRNetCompact(features=feats, num_convs=convs)
     return load_params(model, str(REPO / "checkpoints" / name), jnp.zeros((1, 16, 16, 3)))
@@ -85,6 +107,9 @@ def write_weights(name):
         meta = {k: np.int64(v) for k, v in INPAINT.items()}
     elif name == "perceptual":
         meta = {}
+    elif name in ("saliency", "diffusion"):
+        meta = {k: np.int64(v) for k, v in (SALIENCY if name == "saliency"
+                                            else DIFFUSION).items()}
     else:
         feats, convs = EXPORTS[name]
         meta = {"features": np.int64(feats), "num_convs": np.int64(convs)}
@@ -202,6 +227,63 @@ def test_load_deblur_builds_the_shipped_net():
     assert not any(p.requires_grad for p in net.parameters())
 
 
+@pytest.mark.parametrize("name,meta,leaves", [("saliency", SALIENCY, 14),  # 7 convs
+                                               ("diffusion", DIFFUSION, 16)])  # 7 convs + dense
+def test_committed_saliency_and_diffusion_weights_equal_orbax_restore(name, meta, leaves):
+    """Every array of the committed saliency.npz / diffusion.npz equals the
+    orbax restore exactly, leaf for leaf, and its meta is the model's width."""
+    from elvis_tpu_torch.models.io import read_npz, weights_path
+
+    path = weights_path(name)
+    assert path is not None, f"missing elvis_tpu_torch/weights/{name}.npz"
+    tree, got_meta = read_npz(path)
+    assert got_meta == meta
+    want = _flat(orbax_params(name))
+    got = _flat(tree)
+    assert sorted(got) == sorted(want) and len(want) == leaves
+    for key in want:
+        assert got[key].dtype == np.float32
+        np.testing.assert_array_equal(got[key], want[key], err_msg=f"{name}:{key}")
+
+
+def test_load_saliency_and_diffusion_build_the_shipped_nets():
+    import torch
+
+    from elvis_tpu_torch.models.io import load_diffusion, load_saliency, weights_path
+
+    sal = load_saliency(weights_path("saliency"), device="cpu")
+    assert sal.features == 24 and sal.dtype == torch.bfloat16 and not sal.training
+    assert sal.down1.weight.shape == (96, 48, 3, 3) and sal.head.weight.shape == (1, 48, 3, 3)
+    diff = load_diffusion(weights_path("diffusion"), device="cpu")
+    assert diff.unet.features == 32 and not diff.training
+    assert diff.unet.Dense_0.weight.shape == (64, 32)
+    assert getattr(diff.unet, "in").weight.shape == (32, 6, 3, 3)
+    assert float(diff.unet.eps.weight.abs().max()) > 0  # trained: not the zero init
+    for net in (sal, diff):
+        assert not any(p.requires_grad for p in net.parameters())
+
+
+def test_load_srnet_builds_the_large_tier():
+    from elvis_tpu_torch.models.io import load_srnet, weights_path
+
+    net = load_srnet(weights_path("srnet_large"), device="cpu")
+    assert (net.features, net.num_convs) == (256, 8)
+    assert net.conv7.weight.shape == (256, 256, 3, 3)
+
+
+def test_params_from_flax_transposes_dense_kernels():
+    """A dense kernel ``(in, out)`` becomes a Linear weight ``(out, in)``."""
+    from elvis_tpu_torch.models.io import params_from_flax
+
+    rng = np.random.default_rng(2)
+    k = rng.standard_normal((4, 7)).astype(np.float32)
+    bias = rng.standard_normal((7,)).astype(np.float32)
+    sd = params_from_flax({"params": {"Dense_0": {"kernel": k, "bias": bias}}})
+    np.testing.assert_array_equal(sd["Dense_0.weight"].numpy(), k.T)
+    with pytest.raises(ValueError, match="dense kernel"):
+        params_from_flax({"params": {"x": {"kernel": k[0], "bias": bias}}})
+
+
 def test_params_from_flax_layout():
     """HWIO kernels become OIHW conv weights under the flax layer names."""
     from elvis_tpu_torch.models.io import params_from_flax
@@ -254,13 +336,15 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert not bad, bad
 
 
+ALL = (*EXPORTS, "deblur", "inpaint", "perceptual", "saliency", "diffusion")
+
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--write"]:
-        sys.exit("usage: python tests/test_torch_weights.py --write")
+    if sys.argv[1:2] != ["--write"] or not set(sys.argv[2:]) <= set(ALL):
+        sys.exit(f"usage: python tests/test_torch_weights.py --write [{' | '.join(ALL)} ...]")
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, str(REPO))
-    for n in (*EXPORTS, "deblur", "inpaint", "perceptual"):
+    for n in sys.argv[2:] or ALL:
         print(write_weights(n))
