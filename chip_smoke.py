@@ -74,7 +74,25 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
      out-of-memory fallback, six transform launches; then the diffusion
      restore, the saliency net, ``dct_dampen`` and its inverse, the
      ``srnet_large`` tier, ``level_seq`` and ``naive_sr`` each alone (CUDA
-     events, peak memory), and on a centre crop each held to the CPU.
+     events, peak memory), and on a centre crop each held to the CPU;
+  9. the SR tiers of RRDB ``SRNet`` and the external encoders:
+     ``run_elvis`` at the same size through ``codec="x265"`` (preset
+     'slow') with ``sr_backends=["realesrgan", "srnet", "srnet_ensemble"]``,
+     eleven rows. No encoder binary exists on the card's machine (the phase
+     prints ``which`` of them), so the phase sets ``ELVIS_TPU_FAKE_CODECS``
+     itself and unsets it when done: the argv chain (5 encodes x 2 passes,
+     the qpfile with ``ctu=16`` on the ROI encode's pass 2) and the qpfile
+     (8 lines of 68x120 CTUs; its regrid on the card against the CPU) are
+     checked, the rows' bits are the stash's size. Then kvazaar and SVT-AV1
+     through their pipeline codecs on the clip, the QP / CRF from the rate
+     model's probe on the card, each ROI file at 1080p held to the CPU; the
+     RRDB tier and the ensemble alone (CUDA events, peak memory), and on a
+     centre crop held to the CPU;
+ 10. the PRESLEY sweep as users start it: ``run_presley`` at
+     ``PresleyConfig()``'s defaults (1280x720, 20 frames, block 16, both
+     shrink methods: seventeen rows), every row ``ok`` with finite metrics,
+     the JSON written, each row's time and the seven transform launches;
+     then a 6x96x64 run on the card held to one on the CPU.
 
 ``python3 chip_smoke.py --codec-only`` runs phase 5 alone (no kernel table,
 no ``ok`` line). ``python3 chip_smoke.py --profile`` adds, before phase 5, a
@@ -1224,6 +1242,23 @@ BACKEND_TRANSFORM_LAUNCHES = 6
 # against a mean change of the input of 3.7 and 7.6 grey levels
 DIFFUSION_MAX_GREY = 1.0
 DIFFUSION_MEAN_GREY = 0.1
+# phase 9: the RRDB tier and the ensemble beside the generic slot, through
+# x265 at the 'slow' preset (under the codec shim: no encoder binary exists
+# on the card's machine)
+EXTERNAL_NAMES = dict(codec="x265", encode_preset="slow",
+                      sr_backends=["realesrgan", "srnet", "srnet_ensemble"])
+EXTERNAL_ROWS = (*PIPELINE_ROWS[:6], "PRESLEY SR srnet", "PRESLEY SR srnet_ensemble",
+                 *PIPELINE_ROWS[6:])
+EXTERNAL_BINARIES = ("x265", "kvazaar", "SvtAv1EncApp", "mkvmerge", "ffmpeg")
+# the SR crop on the card against the CPU (2 frames; a CPU pass of the RRDB
+# net and the ensemble on a larger crop takes minutes): uint8 within 1 LSB
+# and 0.1 LSB on average (the SR names' bounds of tests/test_torch_srnet.py),
+# restored PSNR within 0.05 dB
+SR_CROP = (128, 256)
+# phase 10: the PRESLEY sweep's rows at PresleyConfig()'s defaults, and its
+# transform launches: the downsample, scale and blur degrades, the
+# 'lanczos' and 'lanczos_tb' rows, the scale-Lanczos and unsharp rows
+PRESLEY_TRANSFORM_LAUNCHES = 7
 
 
 def _rows(results):
@@ -1676,6 +1711,362 @@ def phase_backends(smi_line):
     return launches
 
 
+def _argv_lines(fake):
+    """The argv chains the codec shim recorded so far."""
+    import os
+
+    with open(os.path.join(fake, "argv.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _qpfile_apart(a_text, b_text):
+    """(lines, values differing, largest |difference|) of two qpfiles, after
+    checking they have the same lines and tokens."""
+    a_lines, b_lines = a_text.splitlines(), b_text.splitlines()
+    check(len(a_lines) == len(b_lines), f"qpfile lines {len(a_lines)} vs {len(b_lines)}")
+    values, lines, worst = 0, 0, 0.0
+    for la, lb in zip(a_lines, b_lines):
+        ta, tb = la.split(" "), lb.split(" ")
+        check(ta[:3] == tb[:3] and len(ta) == len(tb), "qpfile line heads or lengths differ")
+        diff = 0
+        for x, y in zip(ta[3:], tb[3:]):
+            (kx, vx), (ky, vy) = x.rsplit(",", 1), y.rsplit(",", 1)
+            check(kx == ky, f"qpfile cells {x} vs {y}")
+            worst = max(worst, abs(float(vx) - float(vy)))
+            diff += vx != vy
+        values += diff
+        lines += diff > 0
+    return lines, values, worst
+
+
+def phase_external(smi_line):
+    """The SR tiers of this slice and the external encoders at full width:
+    run_elvis through x265 with 'srnet' and 'srnet_ensemble' beside the
+    generic slot, under the codec shim (set here and unset when done); the
+    argv chain, the qpfile and its card-vs-CPU regrid; kvazaar and SVT-AV1
+    through their pipeline codecs with the rate model's QP and CRF, their
+    ROI files held to the CPU; then the RRDB tier and the ensemble alone
+    (CUDA events, peak memory) and on a centre crop held to the CPU.
+    Returns the run's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from elvis_tpu_torch.codec import roi
+    from elvis_tpu_torch.codec.dispatch import _RateModel, make_pipeline_codec
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.kernels import LAUNCHES
+    from elvis_tpu_torch.metrics import masked_psnr
+    from elvis_tpu_torch.pipeline import ElvisConfig, run_elvis
+    from elvis_tpu_torch.pipeline.run import _apply_framewise, _carry_tiling
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+
+    which = subprocess.run(["which", *EXTERNAL_BINARIES], capture_output=True, text=True)
+    print(f"[external] which {' '.join(EXTERNAL_BINARIES)}: rc {which.returncode}, found "
+          f"{which.stdout.split() or 'none'}")
+    fake = tempfile.mkdtemp(prefix="elvis_fake_codecs_")
+    os.environ["ELVIS_TPU_FAKE_CODECS"] = fake
+    print(f"[external] ELVIS_TPU_FAKE_CODECS={fake} set for this phase: every external encode "
+          "records its argv and the adapter stashes its input losslessly, so the rows' bits "
+          "below are the stash's size, not an encoder's")
+    try:
+        with tempfile.TemporaryDirectory() as exp:
+            cfg = ElvisConfig(reference_video=f"synthetic://moving?frames={N}&fps=30", width=W,
+                              height=H, experiment_dir=exp, **EXTERNAL_NAMES)
+            torch.cuda.synchronize()
+            stats = {}
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            run = run_elvis(cfg, device="cuda", stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            argv = _argv_lines(fake)
+            qpfiles = sorted(f for f in os.listdir(os.path.join(exp, "codec"))
+                             if f.endswith(".qpfile"))
+            check(len(qpfiles) == 1, f"qpfiles written: {qpfiles}")
+            with open(os.path.join(exp, "codec", qpfiles[0])) as f:
+                run_qpfile = f.read()
+        times, peaks = run["execution_times_seconds"], stats["stage_peak_bytes"]
+        print(f"[external] run_elvis with {json.dumps(EXTERNAL_NAMES)}, {N} frames {W}x{H}, "
+              f"{smi_line}: {wall:.2f} s wall; peak max_memory_allocated {max(peaks.values())} "
+              "bytes")
+        print("[external] execution_times_seconds: " + json.dumps(times))
+        print("[external] peak max_memory_allocated by stage, bytes: " + json.dumps(peaks))
+        print("[external] backends: " + json.dumps(run["parameters"]["derived"]["backends"]))
+        print(f"[external] kernel launches in the run: {json.dumps(launches)}")
+        check(run["parameters"]["derived"]["codec"] == "x265", "the run did not use x265")
+        check(launches.get("block_transform", 0) == 4,
+              "one transform launch per degrade or classical stage (downsample, blur, Lanczos, "
+              f"unsharp): {launches}")
+        # the argv chain: 5 encodes x 2 passes, the qpfile on the ROI encode's pass 2 only
+        check(len(argv) == 10 and all(a[0] == "ffmpeg" for a in argv), f"argv lines {len(argv)}")
+        params = [a[a.index("-x265-params") + 1] for a in argv]
+        with_qp = [i for i, x in enumerate(params) if "qpfile=" in x]
+        check(with_qp == [5] and "ctu=16" in params[5] and "ctu=16" in params[4],
+              f"qpfile / ctu in the x265-params: {params}")
+        check(all(a[a.index("-preset") + 1] == "slow" for a in argv), "the preset is not slow")
+        check(all("pass=1" in params[i] and "pass=2" in params[i + 1] for i in range(0, 10, 2)),
+              "passes out of order")
+        print(f"[external] argv chain: {len(argv)} lines (5 encodes x 2 passes), the qpfile on "
+              f"line 6 only: {params[5][:60]}...")
+        rows = _rows(run)
+        check(rows == list(EXTERNAL_ROWS), f"rows {rows}")
+        for row in rows:
+            r = run[row]
+            for region in ("foreground", "background"):
+                for key in ("psnr_mean", "ssim_mean", "mse_mean", "lpips_mean", "fvmd"):
+                    check(np.isfinite(r[region][key]), f"{row} {region} {key} = {r[region][key]}")
+            fg, bg = r["foreground"], r["background"]
+            print(f"[external] {row:<26} {r['bitrate_mbps'] * 1e6:11.0f} bit/s (stash); fg/bg "
+                  f"PSNR {fg['psnr_mean']:.4f} / {bg['psnr_mean']:.4f} dB, SSIM "
+                  f"{fg['ssim_mean']:.5f} / {bg['ssim_mean']:.5f}, LPIPS {fg['lpips_mean']:.5f}"
+                  f" / {bg['lpips_mean']:.5f}, FVMD {fg['fvmd']:.4f} / {bg['fvmd']:.4f}")
+
+        # the qpfile: 8 lines of 68x120 CTUs; the card's regrid against the
+        # CPU's on the same scores
+        clip = make_clip(torch.device("cuda"))
+        base = ElvisConfig()
+        scores, _ = score(clip, base)
+        rows_ctu, cols_ctu = math.ceil(H / 16), math.ceil(W / 16)
+        lines = run_qpfile.splitlines()
+        check(len(lines) == N and all(len(x.split(" ")) == 3 + rows_ctu * cols_ctu
+                                      for x in lines),
+              f"qpfile: {len(lines)} lines, not {N} of {rows_ctu}x{cols_ctu} CTUs")
+        sc = scores.cpu().numpy()
+        with tempfile.TemporaryDirectory() as d:
+            texts = {}
+            for where in ("cuda", "cpu"):
+                check(roi.write_x265_qpfile(f"{d}/{where}", sc, B, W, H, device=where) == 16,
+                      "the CTU is not 16")
+                with open(f"{d}/{where}") as f:
+                    texts[where] = f.read()
+        q_lines, q_values, q_worst = _qpfile_apart(texts["cuda"], texts["cpu"])
+        print(f"[external] qpfile {N} lines x {rows_ctu}x{cols_ctu} CTUs; regrid on the card vs "
+              f"the CPU on the same scores: {q_lines} lines and {q_values} values differ, "
+              f"largest {q_worst:.6f} (tol 1e-4 a value)")
+        check(q_worst <= 1e-4 + 1e-9, f"qpfile values apart by {q_worst}")
+
+        # kvazaar and SVT-AV1 through their pipeline codecs on the clip
+        importance = 1.0 - sc
+        target = run["target_bitrate_bps"]
+        ext = {}
+        with tempfile.TemporaryDirectory() as d:
+            for name in ("kvazaar", "svtav1"):
+                codec = make_pipeline_codec(name, f"{d}/{name}", W, H, device="cuda")
+                before = len(_argv_lines(fake))
+                t0 = time.perf_counter()
+                stream = codec.encode_roi(clip, removability=sc, importance=importance,
+                                          block_size=B, roi_qp_range=15, target_bitrate=target,
+                                          framerate=30.0, gop=30)
+                enc_s = time.perf_counter() - t0
+                check(torch.equal(codec.decode(stream), clip), f"{name}: the stash round trip")
+                chain = _argv_lines(fake)[before:]
+                pick = (codec._rate.hevc_qp if name == "kvazaar" else codec._rate.av1_crf)
+                q = pick(clip, target, 30.0)
+                flag = "-q" if name == "kvazaar" else "--crf"
+                check(len(chain) == (3 if name == "kvazaar" else 2)
+                      and chain[0][chain[0].index(flag) + 1] == str(q),
+                      f"{name} argv chain: {chain}")
+                files = {}
+                for where in ("cuda", "cpu"):
+                    path = f"{d}/{name}_{where}.roi"
+                    if name == "kvazaar":
+                        roi.write_kvazaar_roi(path, importance, base_qp=q,
+                                              qp_range=codec.qp_range)
+                        with open(path, "rb") as f:
+                            files[where] = f.read()
+                    else:
+                        roi.write_svtav1_roi(path, importance, base_crf=q,
+                                             qp_range=codec.qp_range, width=W, height=H,
+                                             device=where)
+                        with open(path) as f:
+                            files[where] = [int(v) for v in f.read().split()]
+                if name == "kvazaar":
+                    apart_roi = int(files["cuda"] != files["cpu"])
+                    check(apart_roi == 0, "kvazaar ROI file differs between card and CPU")
+                else:
+                    apart_roi = max(abs(a - b) for a, b in zip(files["cuda"], files["cpu"]))
+                    check(len(files["cuda"]) == len(files["cpu"])
+                          and apart_roi <= 2 * codec.qp_range // 7 + 1,
+                          f"SVT-AV1 ROI offsets apart by {apart_roi} (one segment)")
+                ext[name] = {"qp_or_crf": q, "encode_roi_s": round(enc_s, 3),
+                             "argv_lines": len(chain), "roi_file_apart": apart_roi}
+        # the rate model's probe on a centre crop, card against CPU
+        ch, cw = CROP
+        y0 = (H // 2 - ch // 2) // (2 * B) * (2 * B)
+        x0 = (W // 2 - cw // 2) // (2 * B) * (2 * B)
+        crop = clip[:, y0:y0 + ch, x0:x0 + cw]
+        small_target = int(target * ch * cw / (H * W))
+        qp_card = _RateModel("cuda").hevc_qp(crop, small_target, 30.0)
+        qp_cpu = _RateModel("cpu").hevc_qp(crop.cpu(), small_target, 30.0)
+        ext["rate model on the crop"] = {"qp_card": qp_card, "qp_cpu": qp_cpu}
+        check(abs(qp_card - qp_cpu) <= 1, f"rate model QP card {qp_card} vs CPU {qp_cpu}")
+        print(f"[external] kvazaar / SVT-AV1 encode_roi at {W}x{H}, target {target} bit/s "
+              f"(QP / CRF from the NVC probe on the card; ROI files on the card vs the CPU): "
+              + json.dumps(ext))
+    finally:
+        del os.environ["ELVIS_TPU_FAKE_CODECS"]
+        print("[external] ELVIS_TPU_FAKE_CODECS unset")
+
+    # the RRDB tier and the ensemble alone on the main path's degraded clip
+    down, down_lv = adaptive_downsample(clip, scores, B)
+    sr = {n: resolve_sr_backend(n, base, device="cuda") for n in ("srnet", "srnet_ensemble")}
+    alone = {}
+    for n, (fn, prov) in sr.items():
+        ms, peak = _timed_with_peak(
+            lambda fn=fn: _apply_framewise(_carry_tiling(lambda a, b: fn(a, b, B), fn),
+                                           down, down_lv))
+        alone[n] = {"ms": round(ms, 3), "peak_bytes": peak, "provenance": prov}
+    print(f"[external] {N}x{H}x{W}, each alone as stage 9 drives it (CUDA events, mean of 3 "
+          f"after one warm-up; peak max_memory_allocated above what was held), {smi_line}: "
+          + json.dumps(alone))
+    ch, cw = SR_CROP
+    y0 = (H // 2 - ch // 2) // (2 * B) * (2 * B)
+    x0 = (W // 2 - cw // 2) // (2 * B) * (2 * B)
+    c_down = down[:2, y0:y0 + ch, x0:x0 + cw]
+    c_lv = down_lv[:2, y0 // B:(y0 + ch) // B, x0 // B:(x0 + cw) // B]
+    ref = clip[:2, y0:y0 + ch, x0:x0 + cw].cpu()
+    apart = {}
+    for n, (fn, _) in sr.items():
+        cpu_fn, _ = resolve_sr_backend(n, base, device="cpu")
+        g_card = fn(c_down, c_lv, B).cpu()
+        g_cpu = cpu_fn(c_down.cpu(), c_lv.cpu(), B)
+        lsb = (g_card.int() - g_cpu.int()).abs()
+        p_err = float((masked_psnr(ref, g_card) - masked_psnr(ref, g_cpu)).abs().max())
+        apart[n] = {"max_lsb": int(lsb.max()), "mean_lsb": float(lsb.float().mean()),
+                    "psnr_apart_db": p_err}
+        check(int(lsb.max()) <= 1 and float(lsb.float().mean()) <= 0.1 and p_err <= 0.05,
+              f"{n} card vs CPU: {apart[n]} (1 LSB, 0.1 LSB mean, 0.05 dB)")
+    print(f"[external] card vs CPU on a 2x{ch}x{cw} crop at ({y0}, {x0}): " + json.dumps(apart))
+    return launches
+
+
+def _presley_rows_apart(a, b, skip=()):
+    """Largest difference of each metric over two run_presley results' rows
+    (but ``skip``): relative for the bytes and the MSE, absolute for the
+    rest."""
+    worst = {}
+    for row, rb in b["methods"].items():
+        if row in skip:
+            continue
+        ra = a["methods"][row]
+        if "size_bytes" in rb:
+            worst["bytes_rel"] = max(worst.get("bytes_rel", 0.0),
+                                     abs(ra["size_bytes"] - rb["size_bytes"]) / rb["size_bytes"])
+        for key, vb in rb["metrics"].items():
+            d = abs(ra["metrics"][key] - vb)
+            worst[key] = max(worst.get(key, 0.0), d / vb if key == "mse" else d)
+    return worst
+
+
+def phase_presley(smi_line):
+    """The PRESLEY sweep as users start it (``python -m
+    elvis_tpu_torch.presley``): ``run_presley`` at ``PresleyConfig()``'s
+    defaults on the card, every row ``ok`` with finite metrics, the JSON
+    written, each row's time and the transform launches; then a 6x96x64 run
+    on the card held to one on the CPU. Returns the run's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from elvis_tpu_torch.kernels import LAUNCHES
+    from elvis_tpu_torch.presley import PresleyConfig, run_presley
+
+    with tempfile.TemporaryDirectory() as out:
+        cfg = PresleyConfig(output_dir=out)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = run_presley(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(os.path.isfile(os.path.join(out, "performance_metrics.json")),
+              "run_presley wrote no performance_metrics.json")
+        with open(os.path.join(out, "performance_metrics.json")) as f:
+            written = json.load(f)
+    methods = res["methods"]
+    want = 14 + 3 * (len(cfg.shrink_methods) - 1)
+    check(len(methods) == want and list(written["methods"]) == list(methods),
+          f"{len(methods)} rows, not {want}")
+    for row, r in methods.items():
+        check(r["status"] == "ok", f"{row}: status {r['status']} {r.get('error', '')}")
+        check(all(np.isfinite(v) for v in r["metrics"].values()), f"{row}: {r['metrics']}")
+    print(f"[presley] run_presley at PresleyConfig() ({cfg.width}x{cfg.height}, "
+          f"{cfg.max_frames} frames, block {cfg.block_size}, shrink {cfg.shrink_methods}), "
+          f"{smi_line}: {wall:.2f} s wall, {len(methods)} rows all ok; peak "
+          f"max_memory_allocated {peak} bytes")
+    for row, r in methods.items():
+        m = r["metrics"]
+        print(f"[presley] {row:<32} {r['seconds'] * 1e3:9.2f} ms ({r['fps']:.1f} frames/s); "
+              f"{r.get('size_bytes', 0):8d} bytes; PSNR {m['psnr']:.4f} (fg {m['fg_psnr']:.4f}"
+              f", bg {m['bg_psnr']:.4f}) dB, SSIM {m['ssim']:.5f}, MSE {m['mse']:.3f}")
+    print(f"[presley] kernel launches in the run: {json.dumps(launches)}")
+    # where the rest of the wall goes: the parts outside the rows, each once
+    from elvis_tpu_torch.codec import QUALITY_PRESETS, NvcCodec
+    from elvis_tpu_torch.pipeline.io import load_clip, save_frames_png
+
+    parts = {}
+    t0 = time.perf_counter()
+    frames_np, fps = load_clip(cfg.reference_video, cfg.width, cfg.height, None, device="cuda")
+    parts["load_clip (synthetic, host)"] = time.perf_counter() - t0
+    clip = torch.as_tensor(frames_np[:cfg.max_frames], device="cuda")
+    codec = NvcCodec("cuda")
+    t0 = time.perf_counter()
+    stream = codec.encode(clip, qp=QUALITY_PRESETS[cfg.quality]["nvc_qp"], framerate=fps)
+    parts["one NVC encode of the clip"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codec.decode(stream)
+    torch.cuda.synchronize()
+    parts["one NVC decode"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_frames_png(clip, d)
+        parts["one row's PNG frames (save_intermediate)"] = time.perf_counter() - t0
+    rows_s = sum(r["seconds"] for r in methods.values())
+    print(f"[presley] outside the rows ({rows_s:.2f} s of restorers timed in them), each part "
+          f"once, host clock: " + json.dumps({k: round(v, 3) for k, v in parts.items()})
+          + f"; the run makes {5 + len(cfg.shrink_methods)} encodes and decodes and "
+          f"{len(methods)} rows of PNGs")
+    check(launches.get("block_transform", 0) == PRESLEY_TRANSFORM_LAUNCHES,
+          f"{PRESLEY_TRANSFORM_LAUNCHES} transform launches (three degrades, 'lanczos', "
+          f"'lanczos_tb', scale-Lanczos, unsharp): {launches}")
+
+    # 6x96x64 on the card and on the CPU: the pipeline's row tolerances; the
+    # diffusion row draws its noise from each device's generator, so it is
+    # held to twice the CPU's own range over three seeds where that is larger
+    small = dict(reference_video="synthetic://moving?frames=6", width=96, height=64,
+                 max_frames=6, save_intermediate=False)
+    with tempfile.TemporaryDirectory() as out:
+        card = run_presley(PresleyConfig(output_dir=f"{out}/card", **small), device="cuda")
+        cpu = {seed: run_presley(PresleyConfig(output_dir=f"{out}/cpu{seed}",
+                                               instantir_seed=seed, **small), device="cpu")
+               for seed in (42, 43, 44)}
+    diff_row = "blur_instantir_adaptive"
+    check(list(card["methods"]) == list(cpu[42]["methods"]), "small run rows")
+    worst = _presley_rows_apart(card, cpu[42], skip=(diff_row,))
+    seeds = [cpu[s]["methods"][diff_row]["metrics"] for s in cpu]
+    spread = {k: max(m[k] for m in seeds) - min(m[k] for m in seeds) for k in seeds[0]}
+    d_card = card["methods"][diff_row]["metrics"]
+    d_worst = {k: abs(d_card[k] - seeds[0][k]) for k in d_card}
+    print(f"[presley] run_presley 6x96x64, card vs CPU, largest difference over the rows but "
+          f"the diffusion row: {json.dumps(worst)} (tol bytes 1%, PSNR 0.1 dB, SSIM 2e-3, MSE "
+          f"1%); the diffusion row {json.dumps(d_worst)}, the CPU's range over seeds 42-44 "
+          f"{json.dumps(spread)}")
+    check(all(r["status"] == "ok" for r in card["methods"].values()), "small card run rows")
+    tol = {"psnr": 0.1, "fg_psnr": 0.1, "bg_psnr": 0.1, "ssim": 2e-3, "mse": 0.01}
+    check(worst["bytes_rel"] <= 0.01 and all(worst[k] <= t for k, t in tol.items()),
+          f"card and CPU runs differ: {worst}")
+    check(all(d_worst[k] <= max(t * (seeds[0][k] if k == "mse" else 1), 2 * spread[k])
+              for k, t in tol.items()), f"the diffusion row differs: {d_worst}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1718,6 +2109,10 @@ def main() -> int:
     phase_fills(smi_line, shrunk_stream, removal)
     starting("8 backends")
     launches_backends = phase_backends(smi_line)
+    starting("9 external")
+    launches_external = phase_external(smi_line)
+    starting("10 presley")
+    launches_presley = phase_presley(smi_line)
     starting("kernel table")
     # the transform kernel's headline row is what the paths launch: uint8
     # frames, b=8, the main path's table; the batched kernel's is the block
@@ -1730,7 +2125,9 @@ def main() -> int:
         by_path = {"main": launches_main.get(kname, 0), "blur": launches_blur.get(kname, 0),
                    "codec": launches_codec.get(kname, 0),
                    "pipeline": launches_pipeline.get(kname, 0),
-                   "backends": launches_backends.get(kname, 0)}
+                   "backends": launches_backends.get(kname, 0),
+                   "external": launches_external.get(kname, 0),
+                   "presley": launches_presley.get(kname, 0)}
         uint8_rows = [r for r in rows if r.get("uint8_pixels_differing") is not None]
         kernels.append({
             "name": kname,

@@ -1,13 +1,20 @@
 """Codec boundary (port of ``elvis_tpu.codec``): the built-in NVC codec, the
-strength-map sidecars and the pipeline's codec adapter.
+strength-map sidecars, the ROI files and wrappers of the external encoders
+(x265, kvazaar, SVT-AV1; ``codec.roi``, ``codec.external``) and the
+pipeline's codec adapter (``codec.dispatch``).
 
 QUALITY_PRESETS: named tiers mapping to per-encoder parameters, with an
-'nvc_qp' column for the built-in codec. The external encoder wrappers
-(x265, kvazaar, SVT-AV1), their ROI files and the Y4M reader are not ported
-yet.
+'nvc_qp' column for the built-in codec.
 """
 
 from elvis_tpu_torch.codec.nvc.codec import NvcCodec, decode as nvc_decode, encode as nvc_encode
+from elvis_tpu_torch.codec.roi import (
+    qp_offsets_from_scores,
+    select_ctu_size,
+    write_kvazaar_roi,
+    write_svtav1_roi,
+    write_x265_qpfile,
+)
 from elvis_tpu_torch.codec.sidecar import (
     decode_strength_maps,
     encode_strength_maps,
@@ -46,7 +53,12 @@ __all__ = [
     "load_strength_maps_video",
     "nvc_decode",
     "nvc_encode",
+    "qp_offsets_from_scores",
     "save_removal_masks_npz",
     "save_strength_maps_npz",
     "save_strength_maps_video",
+    "select_ctu_size",
+    "write_kvazaar_roi",
+    "write_svtav1_roi",
+    "write_x265_qpfile",
 ]

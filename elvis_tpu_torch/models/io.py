@@ -2,8 +2,11 @@
 
 The shipped checkpoints reach the port as numpy ``.npz`` files under
 ``elvis_tpu_torch/weights/``: float32 arrays stored under their flax paths
-(``params/head/kernel``, ...), plus the model's hyper-parameters as
-scalars (``features`` and ``num_convs`` for the SR nets; ``features``,
+(``params/head/kernel``, ...), or bfloat16 bit patterns as uint16 arrays
+where the model casts the leaf to bf16 before use (RRDB ``SRNet``'s
+trunk), plus the model's hyper-parameters as scalars (``features`` and
+``num_convs`` for the SRNetCompact family; ``features``, ``growth`` and
+``num_blocks`` for RRDB ``SRNet``; ``features``,
 ``levels`` and the trained ``max_strength`` for the deblur net;
 ``features`` and ``temporal_window`` for the inpaint net; ``features`` for
 the saliency net and the diffusion UNet).
@@ -26,13 +29,15 @@ from elvis_tpu_torch.models.deblur_unet import DeblurUNet
 from elvis_tpu_torch.models.diffusion import DiffusionRestorer
 from elvis_tpu_torch.models.inpaint_net import InpaintNet
 from elvis_tpu_torch.models.saliency_net import SaliencyNet
-from elvis_tpu_torch.models.srnet import SRNetCompact
+from elvis_tpu_torch.models.srnet import SRNet, SRNetCompact
 
 __all__ = [
     "weights_dir",
     "weights_path",
     "params_from_flax",
     "read_npz",
+    "bf16_bits_to_f32",
+    "srnet_arch",
     "load_srnet",
     "load_deblur",
     "load_inpaint",
@@ -81,8 +86,14 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """uint16 bfloat16 bit patterns -> the same values as float32 (exact)."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
 def read_npz(path: str):
-    """``(flax tree of numpy arrays, meta dict)`` from a port weights file."""
+    """``(flax tree of numpy arrays, meta dict)`` from a port weights file;
+    bf16 leaves (uint16 bit patterns) come back as their float32 values."""
     tree: Dict = {}
     meta = {}
     with np.load(path) as data:
@@ -94,15 +105,28 @@ def read_npz(path: str):
             node = tree
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
-            node[parts[-1]] = data[key]
+            leaf = data[key]
+            node[parts[-1]] = bf16_bits_to_f32(leaf) if leaf.dtype == np.uint16 else leaf
     return tree, meta
 
 
-def load_srnet(path: str, device: "str | torch.device" = "cuda") -> SRNetCompact:
-    """An inference-ready SRNetCompact from a port weights file, on ``device``."""
+def srnet_arch(meta: Mapping) -> tuple:
+    """The architecture an SR weights file holds: ``('srnet', features,
+    growth, num_blocks)`` for RRDB ``SRNet`` (its meta has ``num_blocks``),
+    else ``('compact', features, num_convs)``."""
+    if "num_blocks" in meta:
+        return "srnet", int(meta["features"]), int(meta["growth"]), int(meta["num_blocks"])
+    return "compact", int(meta["features"]), int(meta["num_convs"])
+
+
+def load_srnet(path: str, device: "str | torch.device" = "cuda") -> "SRNet | SRNetCompact":
+    """An inference-ready SR net from a port weights file, on ``device``:
+    RRDB ``SRNet`` when the file records ``num_blocks``, else SRNetCompact."""
     dev = resolve_device(device)
     tree, meta = read_npz(path)
-    model = SRNetCompact(features=int(meta["features"]), num_convs=int(meta["num_convs"]))
+    arch = srnet_arch(meta)
+    model = (SRNet(features=arch[1], growth=arch[2], num_blocks=arch[3]) if arch[0] == "srnet"
+             else SRNetCompact(features=arch[1], num_convs=arch[2]))
     model.load_state_dict(params_from_flax(tree))
     return model.to(dev).eval().requires_grad_(False)
 

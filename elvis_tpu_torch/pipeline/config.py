@@ -23,7 +23,7 @@ import argparse
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 __all__ = [
     "ElvisConfig",
@@ -70,9 +70,6 @@ ABSORBED_FIELDS = {
 # item that brings it. Set away from its default, each raises in
 # ``check_ported`` before stage 0.
 PENDING_FIELDS = {
-    # 4: ROI and external codecs
-    "encode_preset": 4,
-    "encode_pix_fmt": 4,
     # 7: parallel (device subsets and the spatial mesh axis)
     "propainter_devices": 7,
     "e2fgvi_devices": 7,
@@ -86,18 +83,14 @@ PENDING_FIELDS = {
 }
 
 _ITEMS = {
-    2: "RRDB SRNet and the SR ensemble",
-    4: "ROI and external codecs",
     7: "parallel",
     8: "train, search, CLI extras",
 }
 
-# backend and codec names the JAX package knows and the port does not yet
-_PENDING_NAMES = {
-    # RRDB SRNet (checkpoints/srnet) has no export yet; the ensemble averages it in
-    "sr_backends": ({"srnet", "srnet_ensemble", "ensemble"}, 2),
-    "codec": ({"x265", "kvazaar", "svtav1"}, 4),
-}
+# backend and codec names the JAX package knows and the port does not yet:
+# field -> (names, item). Every name is ported; a name neither package
+# knows raises ValueError where its stage resolves it, as in JAX.
+_PENDING_NAMES: Dict[str, Tuple[set, int]] = {}
 
 
 @dataclass
@@ -171,7 +164,9 @@ class ElvisConfig:
     minimal_figures: bool = False
 
     # --- framework extensions --------------------------------------------
-    codec: str = "nvc"                 # 'nvc' ('x265' | 'kvazaar' | 'svtav1' not ported yet)
+    codec: str = "nvc"                 # 'nvc' | 'x265' | 'kvazaar' | 'svtav1'
+                                       # (the external ones need their
+                                       # binaries or ELVIS_TPU_FAKE_CODECS)
     quality_preset: str = "medium"     # QUALITY_PRESETS tier for kvazaar/svtav1
     compilation_cache: bool = True     # the JAX package's XLA cache (absorbed)
     nvc_b_frames: bool = False         # NVC: bi-predicted odd frames
@@ -194,7 +189,8 @@ class ElvisConfig:
         default_factory=lambda: ["diffusion", "temporal", "neural"]
     )
     # 'realesrgan' = the generic slot: resolves to the measured-best tier
-    # whose weights ship (srnet_student > srnet_large > srnet_compact)
+    # whose weights ship (srnet_student > srnet_ensemble > srnet_large >
+    # srnet_compact > srnet)
     sr_backends: List[str] = field(default_factory=lambda: ["realesrgan"])
     # 'deblur_net' (trained UNet; unsharp without weights) or 'unsharp'
     deblur_backends: List[str] = field(default_factory=lambda: ["deblur_net"])

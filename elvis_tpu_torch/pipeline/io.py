@@ -2,8 +2,9 @@
 ``(N, H, W, 3)`` uint8 array.
 
 Sources: procedural synthetic clips (``synthetic://<kind>?frames=N``), PNG
-directories, ``.npy`` / ``.npz`` arrays, Y4M files and NVC bitstreams. An mp4
-goes through the external decoder, which is not ported yet.
+directories, ``.npy`` / ``.npz`` arrays, Y4M files and NVC bitstreams. Any
+other file (an mp4) goes through ffmpeg (``codec.external``), and raises
+``FileNotFoundError`` where there is none.
 
 PNG is read and written with ``zlib`` and ``struct`` from the standard
 library: 8-bit grey, grey+alpha, RGB and RGBA, non-interlaced; the writer
@@ -271,9 +272,15 @@ def load_clip(
     elif os.path.isdir(source):
         frames = load_frames_png(source)
     else:
-        raise NotImplementedError(
-            f"cannot read {source!r}: the external (ffmpeg) decoder is not ported yet "
-            "(ROADMAP.md §1 item 4); use y4m/npz/png-dir/nvc or synthetic:// sources")
+        from elvis_tpu_torch.codec.external import decode_video_ffmpeg, is_available
+
+        if not is_available("ffmpeg"):
+            raise FileNotFoundError(
+                f"cannot read {source!r}: no ffmpeg in this environment; use "
+                "y4m/npz/png-dir/nvc or synthetic:// sources"
+            )
+        assert width and height, "mp4 decode needs explicit width/height"
+        frames = decode_video_ffmpeg(source, width, height)
 
     if max_frames is not None:
         frames = frames[:max_frames]

@@ -17,8 +17,10 @@ tiles), so a 128-frame 1080p clip fits one card.
 
   label                  slot                        backend here
   ------------------------------------------------------------------------
-  Baseline               plain encode                codec.dispatch (nvc)
-  PRESLEY QP             per-block delta-QP ROI      NVC's native QP map
+  Baseline               plain encode                codec.dispatch (nvc, x265,
+                                                     kvazaar, svtav1)
+  PRESLEY QP             per-block delta-QP ROI      NVC's native QP map, or
+                                                     the encoder's ROI file
   ELVIS CV2              classical inpaint           PDE diffusion fill
   ELVIS ProPainter       flow-guided propagation     temporal propagation fill
   ELVIS E2FGVI           learned video inpaint       InpaintNet over a temporal seed
@@ -29,10 +31,10 @@ tiles), so a 128-frame 1080p clip fits one card.
   ELVIS v2 Dampen        DCT dampening (optional)    inverse filter
   (+ extra rows per sr_backends/deblur_backends/inpaint_backends entries)
 
-Not ported yet, and refused by ``check_ported`` before stage 0: RRDB
-SRNet and the SR ensemble, the external codecs, the mesh and spatial
-branches (``data_parallel`` shards nothing on one card, as in the JAX
-package on one chip, and the per-stage device lists are pending).
+Not ported yet, and refused by ``check_ported`` before stage 0: the mesh
+and spatial branches (``data_parallel`` shards nothing on one card, as in
+the JAX package on one chip, and the per-stage device lists are pending)
+and ``minimal_figures``.
 """
 
 from __future__ import annotations
@@ -397,10 +399,9 @@ def _run_elvis_impl(config: ElvisConfig, dev: torch.device, stats: Optional[Dict
         return _apply_framewise(_carry_tiling(as_pixels_u8(lambda f, m: fn(f, m, b)), fn),
                                 frames_in, maps_in)
 
-    # (encode_preset / encode_pix_fmt reach only the external encoders,
-    # which are not ported yet)
     codec = make_pipeline_codec(
         config.codec, os.path.join(experiment_dir, "codec"), width, height,
+        preset=config.encode_preset, pix_fmt=config.encode_pix_fmt,
         quality=config.quality_preset, nvc_b_frames=config.nvc_b_frames,
         nvc_me_radius=config.nvc_me_radius, nvc_multi_ref=config.nvc_multi_ref,
         nvc_deblock=config.nvc_deblock, nvc_intra_pred=config.nvc_intra_pred,

@@ -1,5 +1,5 @@
 """Config-driven restoration backends (port of
-``elvis_tpu.restore.backends``, less RRDB ``SRNet`` and the ensemble).
+``elvis_tpu.restore.backends``).
 
 Every resolved backend has the restorer signature
 ``fn(frames, maps, block_size) -> frames``; the windowed inpaint backends
@@ -16,6 +16,7 @@ from __future__ import annotations
 import os
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from elvis_tpu_torch.core.blocks import dilate_block_mask, upsample_map
@@ -25,6 +26,7 @@ from elvis_tpu_torch.models.io import (
     load_diffusion,
     load_inpaint,
     load_srnet,
+    srnet_arch,
     weights_path,
 )
 from elvis_tpu_torch.models.srnet import srnet_upsample_fn
@@ -45,11 +47,11 @@ __all__ = ["resolve_sr_backend", "resolve_deblur_backend", "resolve_inpaint_back
 
 BackendFn = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 
-# single tiers, measured-best first (the JAX package's order without the
-# ensemble and RRDB, which are not ported yet)
-_TIERS = ("srnet_student", "srnet_large", "srnet_compact")
-# SR names whose model (RRDB SRNet, checkpoints/srnet) has no export yet
-_PENDING_SR = ("srnet", "srnet_ensemble", "ensemble")
+# the architecture each pinned tier's weights must hold (the student's
+# width and depth live in its file, so any SRNetCompact is a student)
+_TIER_ARCH = {"srnet": ("srnet", 128, 128, 3), "srnet_compact": ("compact", 128, 5),
+              "srnet_large": ("compact", 256, 8), "srnet_student": None}
+_ENSEMBLE = ("srnet_compact", "srnet", "srnet_large")
 
 
 def default_params_path(name: str, configured: Optional[str], auto: bool) -> Optional[str]:
@@ -82,33 +84,104 @@ def _with_full_fp32(up: Callable) -> Callable:
     return fp32
 
 
+def _sr_meta(path: str) -> dict:
+    """The scalar hyper-parameters of an SR weights file (no arrays read)."""
+    with np.load(path) as data:
+        return {k: data[k].item() for k in data.files if "/" not in k}
+
+
 def _srnet_upsampler(config, which: Optional[str], device) -> Tuple[Optional[Callable], str]:
-    """(2x upsample_fn or None, provenance). ``which`` pins a tier; None
-    takes the first tier whose weights exist. None => progressive Lanczos
-    (what a zero-initialized SRNet computes). ``realesrgan_fp32`` appends
-    ``+fp32`` to a loaded tier's provenance, as in the JAX package."""
+    """(2x upsample_fn or None, provenance), in the JAX package's order.
+    ``which`` pins a tier ('srnet' RRDB, 'srnet_compact', 'srnet_large',
+    'srnet_student', 'srnet_4k') or the ensemble ('srnet_ensemble' /
+    'ensemble': the tiers that load averaged, compact + RRDB + large, only
+    off the shipped files). None, the generic slot, takes the student, then
+    the ensemble, then the first of large, compact, RRDB whose architecture
+    a configured ``srnet_params_path`` holds (the JAX package's restore
+    fails on any other tier's shapes). None => progressive Lanczos (what a
+    zero-initialized SRNet computes). ``realesrgan_fp32`` appends ``+fp32``
+    to a loaded provenance, as in the JAX package."""
+    auto = getattr(config, "auto_load_checkpoints", True)
+
+    def finish(fn, prov):
+        if getattr(config, "realesrgan_fp32", False):
+            return _with_full_fp32(fn), f"{prov}+fp32"
+        return fn, prov
+
+    def load_tier(name):
+        path = default_params_path(name, config.srnet_params_path, auto)
+        if not path:
+            return None, ""
+        try:
+            arch = srnet_arch(_sr_meta(path))
+        except KeyError:  # not an SR weights file
+            arch = None
+        want = _TIER_ARCH[name]
+        fits = arch == want if want else arch is not None and arch[0] == "compact"
+        if not fits:
+            raise ValueError(f"{path} holds {arch}, not the {name} tier's architecture")
+        return srnet_upsample_fn(load_srnet(path, device)), path
+
+    def load_ensemble():
+        # one configured srnet_params_path names ONE file; the ensemble needs
+        # the shipped tiers, so it only forms off the shipped paths
+        if config.srnet_params_path:
+            return None, ""
+        loaded = [load_tier(n) for n in _ENSEMBLE]
+        fns = [fn for fn, _ in loaded if fn is not None]
+        if len(fns) < 2:
+            return None, ""
+        k = float(len(fns))
+
+        def ens(f):
+            return sum(fn(f) for fn in fns) / k
+
+        # averaging commutes with the final interleave: the ensemble runs in
+        # phase form too
+        phase_fns = [fn.phase_fn for fn in fns]
+        ens.phase_fn = lambda f: sum(p(f) for p in phase_fns) / k
+        return ens, "srnet_ensemble[" + " + ".join(p for fn, p in loaded if fn) + "]"
+
     if which == "srnet_4k":
         # the 4K tier needs a trained finisher (checkpoints/srnet_4k in the
         # JAX package); none ships, so both packages run progressive Lanczos
         return None, "lanczos (no 4k finisher checkpoint)"
-    auto = getattr(config, "auto_load_checkpoints", True)
-    for name in (which,) if which else _TIERS:
-        path = default_params_path(name, config.srnet_params_path, auto)
-        if path:
-            up, prov = srnet_upsample_fn(load_srnet(path, device)), f"{name}:{path}"
-            if getattr(config, "realesrgan_fp32", False):
-                return _with_full_fp32(up), f"{prov}+fp32"
-            return up, prov
+    if which in _TIER_ARCH:
+        fn, path = load_tier(which)
+        if fn is not None:
+            return finish(fn, f"{which}:{path}")
+        return None, "lanczos (no SR checkpoint)"
+    if which in ("srnet_ensemble", "ensemble"):
+        fn, prov = load_ensemble()
+        if fn is not None:
+            return finish(fn, prov)
+        # fall through to the single tiers when a file is missing
+    if not config.srnet_params_path:
+        fn, path = load_tier("srnet_student")
+        if fn is not None:
+            return finish(fn, f"srnet_student:{path}")
+    fn, prov = load_ensemble()
+    if fn is not None:
+        return finish(fn, prov)
+    for name in ("srnet_large", "srnet_compact", "srnet"):
+        try:
+            fn, path = load_tier(name)
+        except ValueError:  # a configured file of another tier's architecture
+            continue
+        if fn is not None:
+            return finish(fn, f"{name}:{path}")
     return None, "lanczos (no SR checkpoint)"
 
 
 def resolve_sr_backend(name: str, config,
                        device: "str | torch.device" = "cuda") -> Tuple[BackendFn, str]:
     """Downsample-restoration backends: 'realesrgan' / 'progressive_neural'
-    (the measured-best shipped tier), 'srnet_student', 'srnet_large',
-    'srnet_compact' (each progressive neural, falling back to Lanczos
-    without weights), 'srnet_4k' (progressive Lanczos: no 4K finisher
-    ships), 'progressive_lanczos', 'lanczos' (per block, through the
+    (the measured-best shipped tier: student, ensemble, large, compact,
+    RRDB), 'srnet' (RRDB), 'srnet_student', 'srnet_large', 'srnet_compact'
+    (each progressive neural, falling back to Lanczos without weights),
+    'srnet_ensemble' / 'ensemble' (compact, RRDB and large averaged),
+    'srnet_4k' (progressive Lanczos: no 4K finisher ships),
+    'progressive_lanczos', 'lanczos' (per block, through the
     transform kernel), 'hybrid' (per-block Lanczos plus 0.1 x the
     progressive neural result, weighted by level), 'level_seq' (per level:
     an area resize by ``2**level``, then ``level`` upsamples) and
@@ -135,17 +208,14 @@ def resolve_sr_backend(name: str, config,
     def lanczos_progressive(f, m, b):
         return progressive_restore(f, m, b, upsample_fn=lanczos_upsample_2x)
 
-    if name in _PENDING_SR:
-        raise NotImplementedError(
-            f"sr backend {name!r}: not ported yet (ROADMAP.md §1 item 2, RRDB SRNet and the "
-            "ensemble)")
     if name == "progressive_lanczos":
         return lanczos_progressive, "progressive_lanczos"
     if name == "lanczos":
         return restore_downsample_lanczos, "lanczos"
     dev = resolve_device(device)
-    if name in ("realesrgan", "progressive_neural", "srnet_4k") or name in _TIERS:
-        which = None if name in ("realesrgan", "progressive_neural") else name
+    pinned = (*_TIER_ARCH, "srnet_4k", "srnet_ensemble", "ensemble")
+    if name in ("realesrgan", "progressive_neural") or name in pinned:
+        which = name if name in pinned else None
         up, prov = _srnet_upsampler(config, which, dev)
         if up is None:
             return knobs(lanczos_progressive, prov)
@@ -249,9 +319,15 @@ def resolve_deblur_backend(name: str, config,
         model = load_diffusion(path, resolve_device(device))
         seed = 0 if config.instantir_seed is None else int(config.instantir_seed)
 
+        # PRESLEY's instantir_steps: denoising steps per strength
+        # round (0 or absent: the model's default)
+        spr = int(getattr(config, "instantir_steps", 0) or 0)
+        spr_kw = {"steps_per_round": spr} if spr > 0 else {}
+
         def diffusion(f, m, b):
             gen = torch.Generator(device=f.device).manual_seed(seed)
-            out = model.restore_adaptive(f, m, b, max_rounds=max_rounds, generator=gen)
+            out = model.restore_adaptive(f, m, b, max_rounds=max_rounds, generator=gen,
+                                         **spr_kw)
             if not f.dtype.is_floating_point:
                 out = torch.clamp(torch.round(out), 0, 255)
             return out.to(f.dtype)

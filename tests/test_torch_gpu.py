@@ -734,3 +734,58 @@ def test_srnet_large_on_card_matches_cpu():
     card = card_fn(frames.to(dev), levels.to(dev), 8).cpu()
     cpu = cpu_fn(frames, levels, 8)
     assert float((masked_psnr(frames, card) - masked_psnr(frames, cpu)).abs().max()) <= 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["srnet", "srnet_ensemble"])
+def test_rrdb_and_ensemble_on_card_match_cpu(name):
+    """RRDB SRNet and the ensemble (compact + RRDB + large): restored PSNR
+    within 0.05 dB of the CPU's, uint8 within 1 LSB on 99.5% of pixels (the
+    bounds of the SR crop checks in chip_smoke.py)."""
+    from elvis_tpu_torch.metrics import masked_psnr
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+
+    dev = _cuda()
+    frames = _smooth_clip(2, 64, 96, seed=6)
+    levels = torch.as_tensor(np.random.default_rng(6).integers(0, 4, (2, 8, 12)),
+                             dtype=torch.int32)
+    card_fn, card_prov = resolve_sr_backend(name, ElvisConfig(), device=dev)
+    cpu_fn, cpu_prov = resolve_sr_backend(name, ElvisConfig(), device="cpu")
+    assert card_prov == cpu_prov and ("srnet_ensemble[" in card_prov) == (name != "srnet")
+    card = card_fn(frames.to(dev), levels.to(dev), 8).cpu()
+    cpu = cpu_fn(frames, levels, 8)
+    assert float((masked_psnr(frames, card) - masked_psnr(frames, cpu)).abs().max()) <= 0.05
+    diff = (card.to(torch.int16) - cpu.to(torch.int16)).abs()
+    assert float((diff <= 1).float().mean()) >= 0.995
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 16, 32])
+def test_roi_files_on_card_match_cpu(b, tmp_path):
+    """The ROI writers regridding on the card against the CPU at 1080p: the
+    same CTU and tokens, qpfile values within 1e-4, kvazaar bytes equal, the
+    SVT-AV1 segments within one level."""
+    from elvis_tpu_torch.codec import roi
+
+    dev = _cuda()
+    w, h = 1920, 1080
+    scores = np.random.default_rng(b).random((2, h // b, w // b)).astype(np.float32)
+    files = {}
+    for where in ("cpu", dev):
+        q, k, s = (tmp_path / f"{where.__str__()}.{ext}" for ext in ("qp", "bin", "txt"))
+        ctu = roi.write_x265_qpfile(str(q), scores, b, w, h, device=where)
+        roi.write_kvazaar_roi(str(k), 1 - scores, base_qp=32, qp_range=12)
+        roi.write_svtav1_roi(str(s), 1 - scores, base_crf=40, qp_range=12, width=w, height=h,
+                             device=where)
+        files[str(where)] = (ctu, q.read_text(), k.read_bytes(), s.read_text())
+    cpu, card = files["cpu"], files[str(dev)]
+    assert card[0] == cpu[0] and card[2] == cpu[2]
+    for a, c in zip(cpu[1].split(), card[1].split()):
+        if "," in a:
+            (ka, va), (kc, vc) = a.rsplit(",", 1), c.rsplit(",", 1)
+            assert ka == kc and abs(float(va) - float(vc)) <= 1e-4 + 1e-9
+        else:
+            assert a == c
+    for a, c in zip(cpu[3].split(), card[3].split()):
+        assert abs(int(a) - int(c)) <= (2 * 12) // 7 + 1  # one of the 8 segments

@@ -110,13 +110,33 @@ def _away_from_default(name):
     return [0] if name.endswith("_devices") else ("w.npz" if name.endswith("_path") else 3)
 
 
-@pytest.mark.parametrize("name", sorted(tcfg.PENDING_FIELDS))
+# fields that were pending and are ported now: ROADMAP.md §1 item 4
+PORTED_FIELDS = {"encode_preset": 4, "encode_pix_fmt": 4}
+
+
+@pytest.mark.parametrize("name", sorted({*tcfg.PENDING_FIELDS, *PORTED_FIELDS}))
 def test_pending_field_raises_before_stage_zero(name, tmp_path):
+    """A pending field away from its default raises before stage 0, naming
+    its item. A field ported since (the external encoders' preset and pixel
+    format) passes ``check_ported`` and reaches the codec as in JAX."""
     from elvis_tpu_torch.pipeline import run_elvis
 
     exp = tmp_path / "exp"
+    value = _away_from_default(name)
     cfg = tcfg.ElvisConfig(inpaint_backends=["diffusion"], experiment_dir=str(exp),
-                           **{name: _away_from_default(name)})
+                           **{name: value})
+    if name in PORTED_FIELDS:
+        assert name not in tcfg.PENDING_FIELDS
+        assert PORTED_FIELDS[name] not in set(tcfg.PENDING_FIELDS.values())
+        tcfg.check_ported(cfg)
+        from elvis_tpu.codec.dispatch import make_pipeline_codec as jmake
+        from elvis_tpu_torch.codec.dispatch import make_pipeline_codec as tmake
+
+        kw = {name.replace("encode_", ""): value}
+        t = tmake("x265", str(tmp_path / "t"), 64, 48, device="cpu", **kw)
+        j = jmake("x265", str(tmp_path / "j"), 64, 48, **kw)
+        assert (t.preset, t.pix_fmt) == (j.preset, j.pix_fmt) and value in (t.preset, t.pix_fmt)
+        return
     item = tcfg.PENDING_FIELDS[name]
     with pytest.raises(NotImplementedError, match=rf"{name}=.*ROADMAP\.md §1 item {item}"):
         run_elvis(cfg, device="cpu")
@@ -130,15 +150,33 @@ def test_pending_field_raises_before_stage_zero(name, tmp_path):
     ("sr_backends", ["realesrgan", "ensemble"], 2),
     ("codec", "x265", 4),
     ("codec", "svtav1", 4),
+    ("codec", "h264", None),
 ])
 def test_pending_names_raise_before_stage_zero(field, value, item, tmp_path):
-    from elvis_tpu_torch.pipeline import run_elvis
+    """The names of items 2 and 4 were pending; they are ported now: no
+    name is pending, ``check_ported`` takes each, and the SR name resolves
+    (the provenance JAX's up to the weights file) or the codec builds as in
+    JAX. A codec neither package knows raises ValueError in both."""
+    from elvis_tpu.codec.dispatch import make_pipeline_codec as jmake
+    from elvis_tpu_torch.codec.dispatch import make_pipeline_codec as tmake
 
-    kw = {"inpaint_backends": ["diffusion"], field: value}
-    cfg = tcfg.ElvisConfig(experiment_dir=str(tmp_path / "exp"), **kw)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md §1 item {item}"):
-        run_elvis(cfg, device="cpu")
-    assert not (tmp_path / "exp").exists()
+    assert tcfg._PENDING_NAMES == {} and item not in tcfg._ITEMS
+    tcfg.check_ported(tcfg.ElvisConfig(**{field: value}))
+    if field == "sr_backends":
+        from elvis_tpu.restore.backends import resolve_sr_backend as jresolve
+        from elvis_tpu_torch.restore.backends import resolve_sr_backend as tresolve
+
+        _, tprov = tresolve(value[-1], tcfg.ElvisConfig(), device="cpu")
+        _, jprov = jresolve(value[-1], jcfg.ElvisConfig())
+        assert tprov == re.sub(r"/checkpoints/(\w+)", r"/elvis_tpu_torch/weights/\1.npz", jprov)
+        return
+    if item is None:
+        for make, kw in ((tmake, {"device": "cpu"}), (jmake, {})):
+            with pytest.raises(ValueError, match="unknown codec 'h264'"):
+                make(value, str(tmp_path / "c"), 64, 48, **kw)
+        return
+    t = tmake(value, str(tmp_path / "t"), 64, 48, device="cpu")
+    assert t.name == jmake(value, str(tmp_path / "j"), 64, 48).name == value
 
 
 def test_default_config_raises_for_its_temporal_rows():

@@ -97,8 +97,12 @@ def test_loaders_refuse_missing_card(tmp_path):
         tio.load_masks(str(tmp_path), 8, 8, 2)
 
 
-def test_mp4_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 4"):
+def test_mp4_is_not_ported_yet(monkeypatch, tmp_path):
+    """An mp4 source reads through ffmpeg now; with no ffmpeg (and no
+    codec shim) it raises JAX's FileNotFoundError."""
+    monkeypatch.delenv("ELVIS_TPU_FAKE_CODECS", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="no ffmpeg in this environment"):
         tio.load_clip("clip.mp4", 64, 48, device="cpu")
 
 

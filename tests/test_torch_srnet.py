@@ -214,8 +214,10 @@ def test_realesrgan_fp32_changes_the_provenance_only(sr_clip):
 
 @pytest.mark.parametrize("name", ["srnet", "srnet_ensemble", "ensemble"])
 def test_rrdb_names_raise_naming_their_item(name):
-    from elvis_tpu_torch.pipeline.config import ElvisConfig
-    from elvis_tpu_torch.restore.backends import resolve_sr_backend
-
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 2"):
-        resolve_sr_backend(name, ElvisConfig(), device="cpu")
+    """These names raised while RRDB SRNet had no export (ROADMAP.md §1
+    item 2); they resolve now, with JAX's provenance up to the weights
+    files: 'srnet' the RRDB tier, the ensemble its three tiers."""
+    (_, jprov), (_, tprov) = _resolve_both(name)
+    assert tprov == _port_prov(jprov)
+    assert tprov.startswith("progressive_neural[srnet:" if name == "srnet"
+                            else "progressive_neural[srnet_ensemble[")

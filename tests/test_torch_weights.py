@@ -7,7 +7,7 @@ Export (run once, from the repo root, where JAX and orbax are installed):
     python tests/test_torch_weights.py --write
 
 writes ``elvis_tpu_torch/weights/<name>.npz`` for each name in ``EXPORTS``,
-for ``deblur``, ``inpaint``, ``perceptual``, ``saliency`` and
+for ``srnet``, ``deblur``, ``inpaint``, ``perceptual``, ``saliency`` and
 ``diffusion``: the flax param tree as float32 arrays under their
 ``params/<layer>/<leaf>`` paths (``inpaint``: ``params/<layer>/Conv_0/<leaf>``
 for its gated convs), plus the model's hyper-parameters (``features`` and
@@ -15,6 +15,12 @@ for its gated convs), plus the model's hyper-parameters (``features`` and
 ``max_strength`` of ``checkpoints/deblur.meta.json``; for ``inpaint``:
 ``features`` and ``temporal_window``; for ``saliency`` and ``diffusion``:
 ``features``; ``perceptual`` has none: its widths are its kernels' shapes).
+``srnet`` (RRDB ``SRNet``, 56 leaves, ~9.6 M parameters) stores every trunk
+leaf as its bfloat16 bit pattern (uint16): the flax convs are
+``dtype=bf16`` and cast kernel and bias to bf16 before use, so those bits
+are exactly what both packages compute with, at half the bytes. Its two
+``tail`` leaves stay float32, and its meta is ``features``, ``growth`` and
+``num_blocks``.
 One file alone: ``python tests/test_torch_weights.py --write <name>``.
 """
 
@@ -38,6 +44,8 @@ INPAINT = {"features": 32, "temporal_window": 2}
 # the shipped SaliencyNet and diffusion UNet are the flax default widths
 SALIENCY = {"features": 24}
 DIFFUSION = {"features": 32}
+# RRDB SRNet: the flax default, the shape of checkpoints/srnet
+RRDB = {"features": 128, "growth": 128, "num_blocks": 3}
 
 
 def _flat(tree, prefix=""):
@@ -55,9 +63,12 @@ def orbax_params(name):
     """The flax param tree of ``checkpoints/<name>`` as host numpy arrays."""
     import jax.numpy as jnp
 
-    from elvis_tpu.models import DeblurUNet, SRNetCompact
+    from elvis_tpu.models import DeblurUNet, SRNet, SRNetCompact
     from elvis_tpu.models.io import load_params
 
+    if name == "srnet":  # the example args of restore.backends' load_tier
+        return load_params(SRNet(**RRDB), str(REPO / "checkpoints" / name),
+                           jnp.zeros((1, 16, 16, 3)))
     if name == "deblur":  # the example args of restore.backends.resolve_deblur_backend
         return load_params(DeblurUNet(**DEBLUR), str(REPO / "checkpoints" / name),
                            jnp.zeros((1, 16, 16, 3)), jnp.zeros((1, 2, 2), jnp.int32), 8)
@@ -99,7 +110,26 @@ def deblur_max_strength():
                  ["max_strength"])
 
 
+def bf16_bits(leaf):
+    """float32 -> its round-to-nearest-even bfloat16 bit pattern (uint16),
+    the cast flax's ``nn.Conv(dtype=bf16)`` makes."""
+    import ml_dtypes
+
+    return np.asarray(leaf, np.float32).astype(ml_dtypes.bfloat16).view(np.uint16)
+
+
+def rrdb_leaves(tree):
+    """The RRDB export's leaves: trunk as bf16 bits, ``tail`` float32."""
+    return {k: (v if k.startswith("params/tail/") else bf16_bits(v))
+            for k, v in _flat(tree).items()}
+
+
 def write_weights(name):
+    if name == "srnet":
+        out = REPO / "elvis_tpu_torch" / "weights" / "srnet.npz"
+        np.savez_compressed(out, **{k: np.int64(v) for k, v in RRDB.items()},
+                            **rrdb_leaves(orbax_params(name)))
+        return out
     if name == "deblur":
         meta = {"features": np.int64(DEBLUR["features"]), "levels": np.int64(DEBLUR["levels"]),
                 "max_strength": np.float64(deblur_max_strength())}
@@ -263,6 +293,51 @@ def test_load_saliency_and_diffusion_build_the_shipped_nets():
         assert not any(p.requires_grad for p in net.parameters())
 
 
+def test_committed_rrdb_weights_are_the_bf16_restore():
+    """weights/srnet.npz: each trunk leaf bit for bit the orbax restore cast
+    to bf16 (uint16 in the file), each ``tail`` leaf the float32 restore
+    exactly; 56 leaves, the RRDB meta, at most ~20 MB on disk."""
+    from elvis_tpu_torch.models.io import read_npz, weights_path
+
+    path = weights_path("srnet")
+    assert path is not None, "missing elvis_tpu_torch/weights/srnet.npz"
+    assert os.path.getsize(path) <= 20_500_000
+    want = _flat(orbax_params("srnet"))
+    with np.load(path) as data:
+        stored = {k: data[k] for k in data.files if "/" in k}
+        assert {k: data[k].item() for k in data.files if "/" not in k} == RRDB
+    assert sorted(stored) == sorted(want) and len(want) == 56
+    tail = [k for k in want if k.startswith("params/tail/")]
+    assert sorted(tail) == ["params/tail/bias", "params/tail/kernel"]
+    for key in want:
+        if key in tail:
+            assert stored[key].dtype == np.float32
+            np.testing.assert_array_equal(stored[key], want[key], err_msg=key)
+        else:
+            assert stored[key].dtype == np.uint16
+            np.testing.assert_array_equal(stored[key], bf16_bits(want[key]), err_msg=key)
+    tree, _ = read_npz(path)  # read back as the bf16 values in float32
+    got = _flat(tree)
+    import ml_dtypes
+
+    k = "params/rrdb2/db1/fuse/kernel"
+    np.testing.assert_array_equal(got[k], want[k].astype(ml_dtypes.bfloat16).astype(np.float32))
+
+
+def test_load_srnet_builds_rrdb_from_num_blocks():
+    import torch
+
+    from elvis_tpu_torch.models.io import load_srnet, weights_path
+    from elvis_tpu_torch.models.srnet import SRNet
+
+    net = load_srnet(weights_path("srnet"), device="cpu")
+    assert isinstance(net, SRNet) and net.dtype == torch.bfloat16 and not net.training
+    assert (net.features, net.growth, net.num_blocks) == (128, 128, 3)
+    assert net.rrdb2.db1.fuse.weight.shape == (128, 512, 3, 3)
+    assert net.up.weight.shape == (512, 128, 3, 3) and net.tail.weight.shape == (3, 128, 3, 3)
+    assert sum(p.numel() for p in net.parameters()) == 9_595_395
+
+
 def test_load_srnet_builds_the_large_tier():
     from elvis_tpu_torch.models.io import load_srnet, weights_path
 
@@ -336,7 +411,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert not bad, bad
 
 
-ALL = (*EXPORTS, "deblur", "inpaint", "perceptual", "saliency", "diffusion")
+ALL = (*EXPORTS, "srnet", "deblur", "inpaint", "perceptual", "saliency", "diffusion")
 
 if __name__ == "__main__":
     if sys.argv[1:2] != ["--write"] or not set(sys.argv[2:]) <= set(ALL):
