@@ -92,7 +92,27 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
      ``PresleyConfig()``'s defaults (1280x720, 20 frames, block 16, both
      shrink methods: seventeen rows), every row ``ok`` with finite metrics,
      the JSON written, each row's time and the seven transform launches;
-     then a 6x96x64 run on the card held to one on the CPU.
+     then a 6x96x64 run on the card held to one on the CPU;
+ 11. the parallel layer on logical shards of the one card (the port's
+     device list replaced by k copies of cuda:0): the ``srnet_student``
+     restore of 4 frames of 2160p in height tiles (data 1 x spatial 3,
+     ``spatial_tile_map_blocks``, halo 64; halo 32's error printed beside)
+     against the whole frames; the temporal fill with halo frames
+     (``temporal_map_overlap``, window 1, with and without the motion hint)
+     over 2 and 4 shards against one call; ``run_elvis`` with the default
+     config over a 2-shard data mesh (rows against phase 6's, six transform
+     launches); ``run_elvis`` with ``realesrgan_devices=[0]`` and
+     ``spatial_devices=2`` (no mesh on one card: phase 6's rows, four
+     launches); CUDA-event times and peak memory of each;
+ 12. training: ``train_srnet_student`` at the shipped architecture (256 x 6,
+     batch 16, patch 64, the three teachers, procedural data) for 100 steps
+     at lr 1e-3: ms a step by CUDA events, peak memory, the loss curve, the
+     held-out loss after warm-up and at the end (it must fall), one
+     transform launch a step; the checkpoint through ``resolve_sr_backend``
+     with ``srnet_params_path`` (the tier named, the restore the trained
+     module's); two steps on logical data 2 and data 2 x tensor 2 meshes
+     against one device; two steps on the card against the CPU on a crop;
+     ``deblur`` at its defaults and ``srnet_4k``, 5 steps each.
 
 ``python3 chip_smoke.py --codec-only`` runs phase 5 alone (no kernel table,
 no ``ok`` line). ``python3 chip_smoke.py --profile`` adds, before phase 5, a
@@ -1259,6 +1279,27 @@ SR_CROP = (128, 256)
 # transform launches: the downsample, scale and blur degrades, the
 # 'lanczos' and 'lanczos_tb' rows, the scale-Lanczos and unsharp rows
 PRESLEY_TRANSFORM_LAUNCHES = 7
+# phase 11: the parallel layer on logical shards of the one card
+TALL = (4, 2160, 3840)  # the spatial restore's clip: frames, rows, columns (2160p)
+# tiles of whole blocks: 2160 rows split 3 x 720 (4 x 540 is 67.5 blocks of 8,
+# which spatial_tile_map_blocks refuses and run_elvis's spatial_ok skips)
+TALL_TILES = 3
+# the spatial halo: ElvisConfig's spatial_halo. 32 rows cover the progressive
+# Lanczos loop at max_level 3 (the JAX package's bound), not the student's
+# nine convs a stage: the phase prints 32's error beside 64's, and holds 64
+TALL_HALO = 64
+SHORT_HALO = 32
+SHARD_U8_SHARE = 5e-3  # share of uint8 pixels a sharded restore may put 1 LSB off
+# the sharded run: downsample and blur once, Lanczos and unsharp once per shard
+PARALLEL_TRANSFORM_LAUNCHES = 6
+# phase 12: the student at its shipped architecture, as train_srnet_student takes it
+STUDENT = dict(features=256, num_convs=6, batch=16, patch=64)
+# from the zero tail at the default 2e-4 the student needs more than 100
+# steps to move the held-out loss; at 1e-3, 50 to 100 (CPU runs at 64 x 6)
+TRAIN_STEPS = 100
+TRAIN_LR = 1e-3
+TRAIN_EXTRA_STEPS = 5  # deblur and srnet_4k
+STEP_LR = 1e-4  # the sharded and card-vs-CPU step checks: constant learning rate
 
 
 def _rows(results):
@@ -1450,7 +1491,7 @@ def phase_pipeline(smi_line):
         part_peaks[label] = torch.cuda.max_memory_allocated() - held
     print("[pipeline] evaluation parts alone, peak max_memory_allocated above what was held, "
           "bytes: " + json.dumps(part_peaks))
-    return launches, stats["streams"]["shrunk"], removal
+    return launches, stats["streams"]["shrunk"], removal, first
 
 
 def _timed_with_peak(fn, iters=3):
@@ -2067,6 +2108,384 @@ def phase_presley(smi_line):
     return launches
 
 
+def _logical_devices(k):
+    """The port's device list replaced by ``k`` logical shards of the card
+    (``parallel.mesh.devices``, the one function the mesh code asks);
+    returns the undo."""
+    from elvis_tpu_torch.parallel import mesh as pmesh
+
+    real = pmesh.devices
+    pmesh.devices = lambda device_type="cuda": [torch.device("cuda:0")] * k
+    return lambda: setattr(pmesh, "devices", real)
+
+
+def _tall_clip(n, h, w, device):
+    """make_clip's moving gradients at another size, uint8 (N, H, W, 3)."""
+    t = torch.arange(n, device=device, dtype=torch.float32)[:, None, None]
+    yy = torch.arange(h, device=device, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(w, device=device, dtype=torch.float32)[None, None, :]
+    clip = torch.clamp(128 + 80 * torch.sin(2 * math.pi * (xx + 40 * t) / 300)
+                       * torch.cos(2 * math.pi * yy / 200), 0, 255)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    noise = torch.randn((n, h, w, 3), generator=gen, device=device) * 2.0
+    return torch.clamp(torch.round(clip[..., None] + noise), 0, 255).to(torch.uint8)
+
+
+def _u8_apart(a, b):
+    """(max |a - b| in LSB, share of pixels that differ)."""
+    d = (a.int() - b.int()).abs()
+    return int(d.max()), float((d > 0).float().mean())
+
+
+def phase_parallel(smi_line, shrunk_stream, removal, default_run):
+    """The parallel layer at full width on logical shards of the one card:
+    the student's restore in height tiles at 2160p, the temporal fill with
+    halo frames, run_elvis over a 2-shard data mesh, and run_elvis with a
+    per-stage device list and a spatial axis that one card cannot form.
+    Returns the sharded run's launches."""
+    import tempfile
+
+    from elvis_tpu_torch.codec.nvc.codec import decode
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.degrade.removal import stretch_frames
+    from elvis_tpu_torch.kernels import LAUNCHES
+    from elvis_tpu_torch.ops.motion import motion_field_from_hint
+    from elvis_tpu_torch.parallel import make_mesh, spatial_tile_map_blocks, temporal_map_overlap
+    from elvis_tpu_torch.pipeline import ElvisConfig, run_elvis
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+    from elvis_tpu_torch.restore.inpaint import restore_removal_temporal
+
+    dev = torch.device("cuda")
+    cfg = ElvisConfig()
+    tn, th, tw = TALL
+    check(th >= cfg.spatial_tile_threshold, f"{th} rows do not reach the spatial threshold")
+    clip = _tall_clip(tn, th, tw, dev)
+    degraded, levels = adaptive_downsample(clip, score(clip, cfg)[0], B)
+    restore, prov = resolve_sr_backend("realesrgan", cfg, device=dev)
+    undo = _logical_devices(TALL_TILES)
+    try:
+        mesh = make_mesh((("data", 1), ("spatial", TALL_TILES)), device_type="cuda")
+    finally:
+        undo()
+
+    def tiled(halo):
+        return spatial_tile_map_blocks(lambda f, lv: restore(f, lv, B), degraded, levels, mesh,
+                                       halo, B, data_axis="data")
+
+    whole_ms, whole_peak = _timed_with_peak(lambda: restore(degraded, levels, B), iters=2)
+    tiled_ms, tiled_peak = _timed_with_peak(lambda: tiled(TALL_HALO), iters=2)
+    whole = restore(degraded, levels, B)
+    mx, share = _u8_apart(tiled(TALL_HALO), whole)
+    mx_short, share_short = _u8_apart(tiled(SHORT_HALO), whole)
+    print(f"[parallel] {prov} on {tn}x{th}x{tw}, data 1 x spatial {TALL_TILES} logical mesh "
+          f"on cuda:0, "
+          f"halo {TALL_HALO}, {smi_line}: tiles {tiled_ms:.2f} ms (peak {tiled_peak} bytes), "
+          f"whole frames {whole_ms:.2f} ms (peak {whole_peak} bytes); tiles against whole: "
+          f"max {mx} LSB, {share:.2e} of pixels differ (bound 1 LSB on at most "
+          f"{SHARD_U8_SHARE:.0e}); with halo {SHORT_HALO}: max {mx_short} LSB, "
+          f"{share_short:.2e} of pixels differ (not held)")
+    check(mx <= 1 and share <= SHARD_U8_SHARE, "the height-tiled restore differs from the whole")
+    del clip, degraded, levels, whole
+
+    # the temporal fill with halo frames on the phase 6 clip (window 1,
+    # overlap 2: every shard of 2 and 4 holds at least the overlap)
+    masks, gmv, mdev = removal
+    mask = torch.as_tensor(masks.astype("int8"), device=dev)
+    decoded, _ = decode(shrunk_stream, device=dev)
+    stretched = stretch_frames(decoded, mask, B)
+    field = motion_field_from_hint(torch.as_tensor(gmv, device=dev),
+                                   torch.as_tensor(mdev, device=dev), H // B, W // B)
+    hole = mask.bool().repeat_interleave(B, 1).repeat_interleave(B, 2)
+    fills = {}
+    for label, arrays, call in (
+            ("motion hint", (stretched, mask, field),
+             lambda f, m, mv: restore_removal_temporal(f, m, B, window=1, motion_field=mv)),
+            ("estimated motion", (stretched, mask),
+             lambda f, m: restore_removal_temporal(f, m, B, window=1))):
+        whole = call(*arrays)
+        for k in (2, 4):
+            undo = _logical_devices(k)
+            try:
+                mesh = make_mesh(device_type="cuda")
+            finally:
+                undo()
+            run = lambda: temporal_map_overlap(call, arrays, mesh, overlap=2)  # noqa: E731
+            ms, peak = _timed_with_peak(run)
+            got = run()
+            d = (got[hole].int() - whole[hole].int()).abs()
+            known = bool(torch.equal(got[~hole], whole[~hole]))
+            within = float((d <= 1).float().mean())
+            by_frame = (got.int() - whole.int()).abs().amax(dim=(1, 2, 3))
+            fills[f"{label}, {k} shards"] = {"ms": round(ms, 3), "peak_bytes": peak,
+                                             "known_bit_equal": known,
+                                             "hole_within_1_lsb": within,
+                                             "hole_max_lsb": int(d.max()),
+                                             "max_lsb_by_frame": by_frame.tolist()}
+            check(known and within >= 0.995,
+                  f"temporal fill over {k} shards ({label}) against unsharded: "
+                  f"{fills[f'{label}, {k} shards']}")
+        fills[f"{label}, unsharded"] = {"ms": round(_timed_with_peak(lambda: call(*arrays))[0],
+                                                    3)}
+    print(f"[parallel] temporal fill (window 1, overlap 2) on the phase 6 clip, {N}x{H}x{W}, "
+          f"{smi_line}: " + json.dumps(fills) + " (known pixels bit-equal, at least 99.5% of "
+          "hole pixels within 1 LSB: the fill's scatter adds with float atomics)")
+    del decoded, stretched, field
+
+    # run_elvis, the default config, over a logical 2-shard data mesh
+    tol = {"bitrate_rel": 0.01, "psnr_mean": 0.1, "ssim_mean": 2e-3, "lpips_mean": 1e-3}
+    undo = _logical_devices(2)
+    try:
+        with tempfile.TemporaryDirectory() as exp:
+            torch.cuda.synchronize()
+            stats = {}
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            sharded = run_elvis(ElvisConfig(reference_video=f"synthetic://moving?frames={N}&fps=30",
+                                            width=W, height=H, experiment_dir=exp),
+                                device="cuda", stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+    finally:
+        undo()
+    apart = _rows_apart(sharded, default_run)
+    print(f"[parallel] run_elvis over a logical 2-shard data mesh, {N}x{H}x{W}, {smi_line}: "
+          f"{wall:.2f} s wall, peak max_memory_allocated "
+          f"{max(stats['stage_peak_bytes'].values(), default=0)} bytes; execution_times_seconds "
+          f"{json.dumps(sharded['execution_times_seconds'])}; against phase 6's unsharded run: "
+          f"{json.dumps(apart)} (tol {json.dumps(tol)}); transform launches "
+          f"{json.dumps(launches)}")
+    check(_rows(sharded) == list(PIPELINE_ROWS), f"sharded rows {_rows(sharded)}")
+    check(all(apart[k] <= v for k, v in tol.items()), f"the sharded run's rows differ: {apart}")
+    check(launches.get("block_transform", 0) == PARALLEL_TRANSFORM_LAUNCHES,
+          f"{PARALLEL_TRANSFORM_LAUNCHES} transform launches (downsample, blur, and Lanczos and "
+          f"unsharp on each of 2 shards): {launches}")
+
+    # a one-device stage list and a spatial axis one card cannot form: no mesh
+    with tempfile.TemporaryDirectory() as exp:
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        single = run_elvis(ElvisConfig(reference_video=f"synthetic://moving?frames={N}&fps=30",
+                                       width=W, height=H, experiment_dir=exp,
+                                       realesrgan_devices=[0], spatial_devices=2),
+                           device="cuda")
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        launches1 = dict(LAUNCHES)
+    apart1 = _rows_apart(single, default_run)
+    print(f"[parallel] run_elvis with realesrgan_devices=[0], spatial_devices=2 on the one card: "
+          f"{wall1:.2f} s wall; against the default run: {json.dumps(apart1)}; transform "
+          f"launches {json.dumps(launches1)}")
+    check(_rows(single) == list(PIPELINE_ROWS) and all(apart1[k] <= v for k, v in tol.items()),
+          f"the device-list run's rows differ from the default run's: {apart1}")
+    check(launches1.get("block_transform", 0) == 4, f"no mesh: 4 transform launches, {launches1}")
+    return launches
+
+
+def phase_train(smi_line):
+    """The trainers on the card: ``train_srnet_student`` at the shipped
+    architecture with the three teachers, its checkpoint through the SR
+    backend, the sharded steps against the unsharded one, a step on the
+    card against the CPU, then ``deblur`` and ``srnet_4k``. Returns the
+    transform launches of the student's run."""
+    import tempfile
+
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.device import full_fp32
+    from elvis_tpu_torch.kernels import LAUNCHES
+    from elvis_tpu_torch.models import SRNetCompact
+    from elvis_tpu_torch.models.io import load_deblur
+    from elvis_tpu_torch.models.srnet import srnet_upsample_fn
+    from elvis_tpu_torch.parallel import make_mesh
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+    from elvis_tpu_torch.restore.progressive import progressive_restore
+    from elvis_tpu_torch.train import trainer as ttrainer
+    from elvis_tpu_torch.train.cli import MAX_LEVEL, train_deblur, train_srnet_4k, \
+        train_srnet_student
+    from elvis_tpu_torch.train.data import natural_frames
+
+    dev = torch.device("cuda")
+    warm = min(100, TRAIN_STEPS // 10 + 1)
+    snaps = {}
+    real_step = ttrainer.Trainer.step
+
+    def step_and_snap(self, batch):  # the parameters right after warm-up
+        loss = real_step(self, batch)
+        if self.state.step == warm:
+            snaps["warm"] = {k: v.clone() for k, v in self.params().items()}
+        return loss
+
+    # a held-out batch: the loop's ground-truth loss before and after
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    held_clean = natural_frames(gen, STUDENT["batch"], STUDENT["patch"], STUDENT["patch"])
+    side = STUDENT["patch"] // B
+    held_deg, held_lv = adaptive_downsample(
+        held_clean, torch.rand((STUDENT["batch"], side, side), generator=gen, device=dev), B)
+
+    def held_loss(model, params):
+        up = lambda f: torch.func.functional_call(model, params, (f,))  # noqa: E731
+        with torch.no_grad():
+            out = progressive_restore(held_deg, held_lv, B, upsample_fn=up, max_level=MAX_LEVEL)
+        return float(torch.mean((out - held_clean) ** 2) / 255.0**2)
+
+    ttrainer.Trainer.step = step_and_snap
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            tr = train_srnet_student(TRAIN_STEPS, ckpt, lr=TRAIN_LR, photo_fraction=0.0,
+                                     device=dev, log_every=10, **STUDENT)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - held
+            launches = dict(LAUNCHES)
+            path = f"{ckpt}/srnet_student.npz"
+            meta = json.load(open(f"{ckpt}/srnet_student.meta.json"))
+            fn, prov = resolve_sr_backend("srnet_student",
+                                          ElvisConfig(srnet_params_path=path), device=dev)
+            via_backend = fn(held_deg, held_lv, B)
+            with torch.no_grad():
+                via_module = progressive_restore(held_deg, held_lv, B,
+                                                 upsample_fn=srnet_upsample_fn(tr.model))
+    finally:
+        ttrainer.Trainer.step = real_step
+    losses = tr.losses
+    ms = sorted(tr.step_ms[1:])
+    first_loss = held_loss(tr.model, snaps["warm"])
+    last_loss = held_loss(tr.model, tr.params())
+    curve = {f"{a}-{b - 1}": round(sum(losses[a:b]) / (b - a), 6)
+             for a, b in ((0, warm), (warm, warm + 10), (TRAIN_STEPS - 10, TRAIN_STEPS))}
+    print(f"[train] train_srnet_student {STUDENT}, three teachers {meta['teachers']}, "
+          f"photo_fraction 0, {TRAIN_STEPS} steps at lr {TRAIN_LR}, {smi_line}: {wall:.2f} s "
+          f"wall (teachers' "
+          f"load included), step ms by CUDA events: first {tr.step_ms[0]:.2f}, median "
+          f"{ms[len(ms) // 2]:.2f}, min {ms[0]:.2f}, max {ms[-1]:.2f}; peak max_memory_allocated "
+          f"{peak} bytes; transform launches {json.dumps(launches)}")
+    print(f"[train] loss curve (mean by steps): {json.dumps(curve)}; every step: "
+          + json.dumps([round(x, 6) for x in losses]))
+    print(f"[train] held-out batch ({STUDENT['batch']} natural patches), ground-truth loss "
+          f"after warm-up (step {warm}) {first_loss:.6f}, at the end {last_loss:.6f}")
+    check(all(math.isfinite(x) for x in losses), "a non-finite training loss")
+    check(last_loss < first_loss, "the held-out loss did not fall after warm-up")
+    check(launches.get("block_transform", 0) == TRAIN_STEPS,
+          f"one transform launch (the batch's adaptive downsample) per step: {launches}")
+    print(f"[train] checkpoint through resolve_sr_backend: {prov}")
+    check(prov == f"progressive_neural[srnet_student:{path}]", f"provenance {prov}")
+    check(torch.equal(via_backend, via_module), "the loaded student's restore differs from the "
+                                                "trained module's")
+
+    # the sharded steps against the unsharded step: float32 copies of the
+    # trained student, full float32, constant learning rate, two steps
+    batches = []
+    for _ in range(2):
+        clean = natural_frames(gen, STUDENT["batch"], STUDENT["patch"], STUDENT["patch"])
+        deg, lv = adaptive_downsample(
+            clean, torch.rand((STUDENT["batch"], side, side), generator=gen, device=dev), B)
+        batches.append((clean, deg, lv))
+
+    def sr_steps(mesh, dtype, batches_, device):
+        model = SRNetCompact(STUDENT["features"], STUDENT["num_convs"], dtype=dtype)
+        model.load_state_dict(tr.model.state_dict())
+        model.to(device)
+
+        def loss_fn(p, data):
+            up = lambda f: torch.func.functional_call(model, p, (f,))  # noqa: E731
+            out = progressive_restore(data[1], data[2], B, upsample_fn=up, max_level=MAX_LEVEL)
+            return torch.mean((out - data[0]) ** 2) / 255.0**2
+
+        t = ttrainer.Trainer(loss_fn, model, mesh=mesh, learning_rate=STEP_LR, device=device)
+        step_losses = [float(t.step(tuple(x.to(device) for x in b))) for b in batches_]
+        return t.params(torch.device("cpu")), step_losses
+
+    start = {k: v.cpu() for k, v in tr.params().items()}
+
+    def apart(got, want):
+        """Adam moves a weight by up to the learning rate whatever its
+        gradient's size, so a near-zero gradient's rounding (cuDNN picks its
+        algorithms by batch) can move one weight apart: per tensor, the mean
+        distance against the mean move, and the largest distance."""
+        return {"mean_over_move": max(float((got[n] - want[n]).abs().mean()) / max(
+                    float((want[n] - start[n]).abs().mean()), 1e-12) for n in want),
+                "max_param_apart": max(float((got[n] - want[n]).abs().max()) for n in want)}
+
+    shard_apart = {}
+    with full_fp32():
+        one, one_losses = sr_steps(make_mesh(devices=[0], device_type="cuda"), torch.float32,
+                                   batches, dev)
+        for label, k, axes in (("data 2", 2, (("data", 2),)),
+                               ("data 2 x tensor 2", 4, (("data", 2), ("tensor", 2)))):
+            undo = _logical_devices(k)
+            try:
+                mesh = make_mesh(axes, device_type="cuda")
+            finally:
+                undo()
+            got, got_losses = sr_steps(mesh, torch.float32, batches, dev)
+            shard_apart[label] = dict(apart(got, one), loss_rel_apart=max(
+                abs(a - b) / b for a, b in zip(got_losses, one_losses)))
+        again, _ = sr_steps(make_mesh(devices=[0], device_type="cuda"), torch.float32, batches,
+                            dev)
+        shard_apart["one device again"] = apart(again, one)
+    moved = max(float((one[n] - start[n]).abs().max()) for n in one)
+    print(f"[train] two steps (lr {STEP_LR}) of the float32 student on logical meshes of the "
+          f"card against one device: {json.dumps(shard_apart)}; the unsharded step moved the "
+          f"parameters by up to {moved:.3e} (bounds: mean distance 1% of the mean move, the "
+          f"largest a quarter of the summed learning rate, {0.25 * 2 * STEP_LR:.0e}; losses "
+          "1e-5 relative)")
+    check(all(v["mean_over_move"] <= 0.01 and v["max_param_apart"] <= 0.25 * 2 * STEP_LR
+              and v.get("loss_rel_apart", 0.0) <= 1e-5 for v in shard_apart.values()),
+          f"sharded steps differ: {shard_apart}")
+
+    # a step on the card against the same step on the CPU: the bf16 student
+    # on a 4 x 32 x 32 crop of the batches
+    crop = [tuple(x[:4, : x.shape[1] // 2, : x.shape[2] // 2] for x in b) for b in batches]
+    card, card_losses = sr_steps(make_mesh(devices=[0], device_type="cuda"), torch.bfloat16,
+                                 crop, dev)
+    cpu, cpu_losses = sr_steps(make_mesh(devices=[0], device_type="cpu"), torch.bfloat16,
+                               [tuple(x.cpu() for x in b) for b in crop], torch.device("cpu"))
+    card_cpu = apart(card, cpu)
+    far = max(float(((card[n] - cpu[n]).abs() > 0.25 * 2 * STEP_LR).float().mean()) for n in cpu)
+    loss_apart = max(abs(a - b) / b for a, b in zip(card_losses, cpu_losses))
+    print(f"[train] two bf16 steps on a crop, card against CPU: {json.dumps(card_cpu)}, share "
+          f"beyond a quarter of the summed learning rate {far:.4f}, losses {loss_apart:.2e} "
+          "relative apart (bounds: mean distance 15% of the mean move, that share 5%, losses "
+          "1e-2: the bf16 trunks round differently)")
+    check(card_cpu["mean_over_move"] <= 0.15 and far <= 0.05 and loss_apart <= 1e-2,
+          "the card's step differs from the CPU's")
+
+    # deblur at its defaults, and the 4K finisher
+    with tempfile.TemporaryDirectory() as ckpt:
+        extra = {}
+        for name, call in (("deblur", lambda: train_deblur(TRAIN_EXTRA_STEPS, ckpt, device=dev,
+                                                             log_every=100)),
+                           ("srnet_4k", lambda: train_srnet_4k(TRAIN_EXTRA_STEPS, ckpt,
+                                                                 photo_fraction=0.0,
+                                                                 device=dev, log_every=100))):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            LAUNCHES.clear()
+            t = call()
+            torch.cuda.synchronize()
+            extra[name] = {"step_ms": [round(x, 2) for x in t.step_ms],
+                           "losses": [round(x, 6) for x in t.losses],
+                           "peak_bytes": torch.cuda.max_memory_allocated() - held,
+                           "transform_launches": LAUNCHES.get("block_transform", 0)}
+            check(all(math.isfinite(x) for x in t.losses), f"{name}: a non-finite loss")
+            check(extra[name]["transform_launches"] == TRAIN_EXTRA_STEPS,
+                  f"{name}: one transform launch per step: {extra[name]}")
+        deblur = load_deblur(f"{ckpt}/deblur.npz", device=dev)
+        check(deblur.max_strength == 10.0, "the deblur checkpoint's max_strength")
+    print(f"[train] deblur (batch 8, patch 64) and srnet_4k (64 x 5 over the frozen "
+          f"srnet_compact), {TRAIN_EXTRA_STEPS} steps each, {smi_line}: " + json.dumps(extra))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2104,7 +2523,7 @@ def main() -> int:
     starting("5 codec")
     launches_codec = phase_codec(main_tensors, profile)
     starting("6 pipeline")
-    launches_pipeline, shrunk_stream, removal = phase_pipeline(smi_line)
+    launches_pipeline, shrunk_stream, removal, default_run = phase_pipeline(smi_line)
     starting("7 fills")
     phase_fills(smi_line, shrunk_stream, removal)
     starting("8 backends")
@@ -2113,6 +2532,10 @@ def main() -> int:
     launches_external = phase_external(smi_line)
     starting("10 presley")
     launches_presley = phase_presley(smi_line)
+    starting("11 parallel")
+    launches_parallel = phase_parallel(smi_line, shrunk_stream, removal, default_run)
+    starting("12 train")
+    launches_train = phase_train(smi_line)
     starting("kernel table")
     # the transform kernel's headline row is what the paths launch: uint8
     # frames, b=8, the main path's table; the batched kernel's is the block
@@ -2127,7 +2550,9 @@ def main() -> int:
                    "pipeline": launches_pipeline.get(kname, 0),
                    "backends": launches_backends.get(kname, 0),
                    "external": launches_external.get(kname, 0),
-                   "presley": launches_presley.get(kname, 0)}
+                   "presley": launches_presley.get(kname, 0),
+                   "parallel": launches_parallel.get(kname, 0),
+                   "train": launches_train.get(kname, 0)}
         uint8_rows = [r for r in rows if r.get("uint8_pixels_differing") is not None]
         kernels.append({
             "name": kname,

@@ -37,7 +37,9 @@ YUV 4:2:0, DCT and inverse DCT, block motion), ``kernels``, ``scoring``,
 ``restore`` (SR, deblur, classical, the PDE fill, temporal blend),
 ``metrics`` (masked PSNR/SSIM/MSE, LPIPS, FVMD, VMAF, the evaluation
 fan-out and report), ``pipeline`` (``ElvisConfig``, clip I/O, the stage
-cache, ``run_elvis``), ``utils`` and ``codec``: the NVC codec (``codec.nvc.transform``: ``encode_plane``,
+cache, ``run_elvis``), ``parallel`` (the device mesh, halo exchange, the
+multi-process runtime on ``torch.distributed``), ``train`` (the sharded
+trainer, the training data, the trainers' CLI), ``utils`` and ``codec``: the NVC codec (``codec.nvc.transform``: ``encode_plane``,
 ``decode_plane``, ``encode_plane_b``, ``decode_plane_b``;
 ``codec.nvc.codec``: ``encode``, ``decode``, ``NvcCodec``;
 ``codec.nvc.entropy``: the range coder, built from
@@ -48,4 +50,4 @@ strength-map and removal-mask sidecars (``codec.sidecar``), Y4M
 device half is stock PyTorch ops, as the JAX package's is XLA ops.
 """
 
-__version__ = "0.1.0"
+from elvis_tpu_torch.version import __version__  # noqa: E402,F401

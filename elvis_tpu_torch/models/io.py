@@ -11,7 +11,8 @@ trunk), plus the model's hyper-parameters as scalars (``features`` and
 ``features`` and ``temporal_window`` for the inpaint net; ``features`` for
 the saliency net and the diffusion UNet).
 ``params_from_flax`` turns such a tree into a PyTorch state_dict (HWIO
-kernels -> OIHW, dense kernels transposed); ``load_srnet``,
+kernels -> OIHW, dense kernels transposed) and ``write_npz`` writes a
+state_dict back in that format (the trainers' checkpoints); ``load_srnet``,
 ``load_deblur``, ``load_inpaint``, ``load_saliency`` and ``load_diffusion``
 build the models.
 """
@@ -36,6 +37,8 @@ __all__ = [
     "weights_path",
     "params_from_flax",
     "read_npz",
+    "write_npz",
+    "model_meta",
     "bf16_bits_to_f32",
     "srnet_arch",
     "load_srnet",
@@ -84,6 +87,37 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(tree.get("params", tree), "")
     return state
+
+
+def write_npz(path: str, params: Mapping[str, torch.Tensor], meta: Mapping) -> None:
+    """A state_dict of 2-D convs and dense layers (the inverse of
+    ``params_from_flax``: OIHW -> HWIO, ``(out, in)`` -> ``(in, out)``,
+    dotted names -> flax paths) and the model's scalar hyper-parameters
+    ``meta``, written as a port weights file (float32 leaves)."""
+    arrays = {}
+    for name, t in params.items():
+        layer, kind = name.rsplit(".", 1)
+        a = t.detach().float().cpu().numpy()
+        if kind == "weight":
+            kind, a = "kernel", a.transpose((2, 3, 1, 0) if a.ndim == 4 else (1, 0))
+        arrays["params/" + layer.replace(".", "/") + "/" + kind] = np.ascontiguousarray(a)
+    for key, value in meta.items():
+        arrays[key] = np.asarray(value)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def model_meta(model: torch.nn.Module) -> Dict:
+    """The scalars a weights file records so the loaders rebuild ``model``."""
+    if isinstance(model, SRNet):
+        return {"features": model.features, "growth": model.growth,
+                "num_blocks": model.num_blocks}
+    if isinstance(model, SRNetCompact):
+        return {"features": model.features, "num_convs": model.num_convs}
+    if isinstance(model, DeblurUNet):
+        return {"features": model.features, "levels": model.levels,
+                "max_strength": model.max_strength}
+    raise TypeError(f"no weights-file meta for {type(model).__name__}")
 
 
 def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:

@@ -35,7 +35,7 @@ __all__ = [
 ]
 
 # Fields with no mechanism to drive: the JAX package's nine (its reasons),
-# plus ``compilation_cache`` and ``data_parallel``, which the port has none for.
+# plus ``compilation_cache``, which the port has none for.
 ABSORBED_FIELDS = {
     # sized the reference's per-GPU FVMD process pool; FVMD here is batched
     # tensor reductions with no process pool
@@ -61,29 +61,17 @@ ABSORBED_FIELDS = {
     # eagerly and compiles nothing per stage (the hand-written kernels are
     # built once per source into elvis_tpu_torch/_build/ whatever this says)
     "compilation_cache",
-    # frame sharding over a device mesh; the port runs on one card, where it
-    # is a no-op (as in the JAX package on one chip). The mesh is item 7.
-    "data_parallel",
 }
 
 # Fields whose mechanism the port does not have yet -> the ROADMAP.md §1
 # item that brings it. Set away from its default, each raises in
 # ``check_ported`` before stage 0.
 PENDING_FIELDS = {
-    # 7: parallel (device subsets and the spatial mesh axis)
-    "propainter_devices": 7,
-    "e2fgvi_devices": 7,
-    "realesrgan_devices": 7,
-    "instantir_devices": 7,
-    "spatial_devices": 7,
-    "spatial_tile_threshold": 7,
-    "spatial_halo": 7,
     # 8: train, search, CLI extras (the search drivers' figure roll-up)
     "minimal_figures": 8,
 }
 
 _ITEMS = {
-    7: "parallel",
     8: "train, search, CLI extras",
 }
 
@@ -212,7 +200,7 @@ class ElvisConfig:
     enable_vmaf: bool = True
     masks_dir: Optional[str] = None  # external FG masks (DAVIS-style PNG dir)
     profile_dir: Optional[str] = None  # torch.profiler trace output
-    data_parallel: bool = True  # shard frames over devices (absorbed: one card)
+    data_parallel: bool = True  # shard frames over the devices (one card: no mesh)
     verbose: bool = True  # each stage prints its wall-clock as it lands
     spatial_devices: int = 0      # spatial mesh axis size (0 = frame DP only)
     spatial_tile_threshold: int = 1440  # min height (px) to engage tiling

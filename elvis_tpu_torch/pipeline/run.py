@@ -15,6 +15,15 @@ under a pixel budget (``_FRAME_CHUNK_PIXEL_BUDGET``; a backend's
 it further, and a net whose frame still busts its budget runs in height
 tiles), so a 128-frame 1080p clip fits one card.
 
+With ``data_parallel`` and more than one device (``parallel.mesh.devices``),
+the per-frame and temporal stages shard the frame axis over a mesh
+(``_DataParallel``, the JAX package's: pad, shard, run, trim; temporal
+stages exchange halo frames), each stage over its own device list
+(``propainter_devices``, ``e2fgvi_devices``, ``realesrgan_devices``,
+``instantir_devices``), and frames at least ``spatial_tile_threshold``
+tall restore in height tiles over a data x spatial mesh
+(``spatial_devices``, ``spatial_halo``). On one card none of that runs.
+
   label                  slot                        backend here
   ------------------------------------------------------------------------
   Baseline               plain encode                codec.dispatch (nvc, x265,
@@ -31,10 +40,8 @@ tiles), so a 128-frame 1080p clip fits one card.
   ELVIS v2 Dampen        DCT dampening (optional)    inverse filter
   (+ extra rows per sr_backends/deblur_backends/inpaint_backends entries)
 
-Not ported yet, and refused by ``check_ported`` before stage 0: the mesh
-and spatial branches (``data_parallel`` shards nothing on one card, as in
-the JAX package on one chip, and the per-stage device lists are pending)
-and ``minimal_figures``.
+Not ported yet, and refused by ``check_ported`` before stage 0:
+``minimal_figures``.
 """
 
 from __future__ import annotations
@@ -64,6 +71,9 @@ from elvis_tpu_torch.degrade.dct_dampen import dct_dampen
 from elvis_tpu_torch.device import resolve_device
 from elvis_tpu_torch.metrics.evaluate import analyze_encoding_performance
 from elvis_tpu_torch.metrics.report import format_summary_report
+from elvis_tpu_torch.parallel import mesh as _mesh
+from elvis_tpu_torch.parallel.halo import spatial_tile_map_blocks, temporal_map_overlap
+from elvis_tpu_torch.parallel.mesh import make_mesh, resolve_devices, shard_frames
 from elvis_tpu_torch.pipeline.cache import StageCache
 from elvis_tpu_torch.pipeline.config import ElvisConfig, check_ported
 from elvis_tpu_torch.pipeline.io import load_clip, save_frames_png
@@ -205,9 +215,8 @@ def _chunk_frames(shape, fn=None) -> int:
 
 
 def _apply_framewise(fn, *arrays):
-    """A per-frame op over bounded-memory frame chunks (exact). The one-card
-    part of the JAX package's ``_DataParallel.apply``: its frame sharding
-    over a device mesh is ROADMAP.md §1 item 7."""
+    """A per-frame op over bounded-memory frame chunks (exact): the path of
+    ``_DataParallel.apply`` with no mesh, and what runs inside each shard."""
     n = int(arrays[0].shape[0])
     chunk = _chunk_frames(arrays[0].shape, fn)
     if getattr(fn, "spatial_halo_rows", 0):
@@ -226,8 +235,9 @@ def _apply_framewise(fn, *arrays):
 
 def _apply_temporal(fn, arrays, overlap: int):
     """A windowed op over frame chunks that see ``overlap`` context frames
-    past each boundary, trimmed after (the reference's overlap-and-trim;
-    the one-card part of ``_DataParallel.apply_temporal``)."""
+    past each boundary, trimmed after (the reference's overlap-and-trim):
+    the path of ``_DataParallel.apply_temporal`` with no mesh, and what
+    runs inside each shard."""
     n = int(arrays[0].shape[0])
     chunk = _chunk_frames(arrays[0].shape, fn)
     tiled = _height_tile_plan(fn, arrays[0].shape, min(n, chunk + 2 * overlap))
@@ -241,36 +251,159 @@ def _apply_temporal(fn, arrays, overlap: int):
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
-def _apply_inpaint_backend(name, fn, stretched, removal_mask, b, motion_field=None):
-    """Stage 8's driver for one inpaint backend (the one-card part of the
-    JAX package's ``_apply_inpaint_backend``).
+def _device_key(device: torch.device) -> torch.device:
+    """``cuda`` as the index it means (a tensor's device carries one), and
+    ``cpu`` without one."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu") if device.type == "cpu" else device
 
-    'diffusion' is per-frame: plain frame chunks. A windowed backend runs
-    over frame chunks with its own ``temporal_overlap`` of context; the
-    motion field rides as one more frame-axis array, so a chunk's field is
-    sliced with its frames (a chunk's first per-pair entry is never used).
-    A backend with ``split`` runs in two phases, the seed and then its
-    ``post``, each at its own overlap: the net's feature maps never span the
-    seed's wide window. seed + post equals the fused backend."""
+
+class _PerDevice:
+    """A stage function per device. A backend whose weights live on the
+    run's device is resolved once more for each other device a stage's mesh
+    runs a shard on; ``map`` derives the argument-binding wrappers."""
+
+    def __init__(self, make, known=None):
+        self._make = make
+        self._fns = {_device_key(d): fn for d, fn in (known or {}).items()}
+
+    def on(self, device: torch.device):
+        key = _device_key(device)
+        if key not in self._fns:
+            self._fns[key] = self._make(key)
+        return self._fns[key]
+
+    def map(self, wrap) -> "_PerDevice":
+        return _PerDevice(lambda d: wrap(self.on(d)))
+
+
+def _on(fn, device: torch.device):
+    return fn.on(device) if isinstance(fn, _PerDevice) else fn
+
+
+class _DataParallel:
+    """Frame-axis data parallelism over a device mesh (the JAX package's).
+
+    ``apply`` pads N up to a multiple of the mesh's data axis (edge-frame
+    repeats), shards it, runs a per-frame op on each shard on its device and
+    trims; ``apply_temporal`` also gives each shard ``overlap`` halo frames
+    from its neighbours (``parallel.halo.temporal_map_overlap``), falling
+    back to the unsharded call when a shard would be smaller than the
+    window; ``apply_spatial`` restores tall frames in height tiles over a
+    data x spatial mesh (``spatial_tile_map_blocks``). Inside a shard the
+    one-card chunked calls bound the memory (exact for per-frame ops).
+
+    No mesh (``data_parallel`` off, or one device): both entry points are
+    ``_apply_framewise`` / ``_apply_temporal``. ``devices`` selects a
+    stage's own device list; a list of one device means no mesh.
+    ``fn`` is a callable or a ``_PerDevice``."""
+
+    def __init__(self, enabled: bool, spatial: int = 0, device_type: str = "cuda"):
+        self.mesh = None
+        self.spatial_mesh = None
+        self._submeshes = {}
+        self.device_type = device_type
+        n_dev = len(_mesh.devices(device_type)) if enabled else 0
+        if n_dev > 1:
+            self.mesh = make_mesh(device_type=device_type)
+            if spatial > 1 and n_dev % spatial == 0:
+                # data x spatial mesh for height-tiled full-frame restores
+                self.spatial_mesh = make_mesh((("data", n_dev // spatial), ("spatial", spatial)),
+                                              device_type=device_type)
+
+    def _mesh_for(self, devices):
+        """The mesh of a stage's device list (None: the full mesh)."""
+        if devices is None or self.mesh is None:
+            return self.mesh
+        key = tuple(str(d) for d in devices)
+        if key not in self._submeshes:
+            n = len(resolve_devices(devices, self.device_type))
+            self._submeshes[key] = (make_mesh(devices=devices, device_type=self.device_type)
+                                    if n > 1 else None)
+        return self._submeshes[key]
+
+    def apply(self, fn, *arrays, devices=None) -> torch.Tensor:
+        mesh = self._mesh_for(devices)
+        home = arrays[0].device
+        if mesh is None:
+            return _apply_framewise(_on(fn, home), *arrays)
+        n = int(arrays[0].shape[0])
+        sharded = [shard_frames(a, mesh)[0] for a in arrays]
+        outs = [_apply_framewise(_on(fn, d), *[s.shards[i] for s in sharded]).to(home)
+                for i, d in enumerate(sharded[0].sharding.devices)]
+        return torch.cat(outs)[:n]
+
+    def apply_temporal(self, fn, arrays, overlap: int, devices=None) -> torch.Tensor:
+        mesh = self._mesh_for(devices)
+        home = arrays[0].device
+        n = int(arrays[0].shape[0])
+        size = mesh.shape["data"] if mesh is not None else 1
+        if mesh is None or (n + (-n) % size) // size < overlap:
+            return _apply_temporal(_on(fn, home), arrays, overlap)
+        padded = tuple(shard_frames(a, mesh)[0] for a in arrays)
+        out = temporal_map_overlap(
+            lambda *ext: _apply_temporal(_on(fn, ext[0].device), ext, overlap),
+            padded, mesh, overlap)
+        return out.to(home)[:n]
+
+    def spatial_ok(self, height: int, block_size: int) -> bool:
+        return (self.spatial_mesh is not None
+                and height % (self.spatial_mesh.shape["spatial"] * block_size) == 0)
+
+    def apply_spatial(self, fn, frames, levels, halo: int, block_size: int) -> torch.Tensor:
+        """Frame DP x height tiles: a per-frame restore on 2-D shards with
+        the pixel and block halos (``halo`` rounded down to a multiple of
+        ``block_size``, at least one block)."""
+        mesh = self.spatial_mesh
+        home, n = frames.device, int(frames.shape[0])
+        halo = max(block_size, halo - halo % block_size)
+        out = spatial_tile_map_blocks(
+            lambda f, lv: _apply_framewise(_on(fn, f.device), f, lv),
+            shard_frames(frames, mesh)[0], shard_frames(levels, mesh)[0], mesh, halo,
+            block_size, data_axis="data")
+        return out.to(home)[:n]
+
+
+def _apply_inpaint_backend(name, fn, stretched, removal_mask, b, motion_field=None,
+                           dp: Optional[_DataParallel] = None, devices=None):
+    """Stage 8 for one inpaint backend (the JAX package's), over
+    ``dp``'s mesh for the stage's ``devices`` (no mesh when ``dp`` is None).
+
+    'diffusion' is per-frame: plain frame shards and chunks. A windowed
+    backend runs with its own ``temporal_overlap`` of context at every
+    shard and chunk boundary; the motion field rides as one more frame-axis
+    array, so a chunk's field is sliced with its frames (a chunk's first
+    per-pair entry is never used). A backend with ``split`` runs in two
+    phases, the seed and then its ``post``, each at its own overlap: the
+    net's feature maps never span the seed's wide window. seed + post
+    equals the fused backend. ``fn`` is a callable or a ``_PerDevice``."""
+    dp = dp or _DataParallel(False)
+    if not isinstance(fn, _PerDevice):
+        fn = _PerDevice(lambda d, one=fn: one)
+    home = stretched.device
     if name == "diffusion":
-        return _apply_framewise(lambda f, m: fn(f, m, b), stretched, removal_mask)
+        return dp.apply(fn.map(lambda g: lambda f, m: g(f, m, b)), stretched, removal_mask,
+                        devices=devices)
 
-    def windowed(g):
+    def windowed(g_pd):
         if motion_field is None:
-            call, arrays = (lambda f, m: g(f, m, b)), (stretched, removal_mask)
+            call = g_pd.map(lambda g: _carry_tiling(lambda f, m: g(f, m, b), g))
+            arrays = (stretched, removal_mask)
         else:
-            call, arrays = ((lambda f, m, mv: g(f, m, b, mv=mv)),
-                            (stretched, removal_mask, motion_field))
-        return _apply_temporal(_carry_tiling(call, g), arrays,
-                               overlap=getattr(g, "temporal_overlap", 16))
+            call = g_pd.map(lambda g: _carry_tiling(lambda f, m, mv: g(f, m, b, mv=mv), g))
+            arrays = (stretched, removal_mask, motion_field)
+        return dp.apply_temporal(call, arrays, devices=devices,
+                                 overlap=getattr(g_pd.on(home), "temporal_overlap", 16))
 
-    split = getattr(fn, "split", None)
-    if split is None:
+    if getattr(fn.on(home), "split", None) is None:
         return windowed(fn)
-    seeded = windowed(split)
-    post = split.post
-    return _apply_temporal(_carry_tiling(lambda f, m: post(f, m, b), post),
-                           (seeded, removal_mask), overlap=getattr(post, "temporal_overlap", 2))
+    seeded = windowed(fn.map(lambda g: g.split))
+    post = fn.map(lambda g: g.split.post)
+    return dp.apply_temporal(post.map(lambda p: _carry_tiling(lambda f, m: p(f, m, b), p)),
+                             (seeded, removal_mask), devices=devices,
+                             overlap=getattr(post.on(home), "temporal_overlap", 2))
 
 
 def _rss_gb() -> float:
@@ -395,9 +528,24 @@ def _run_elvis_impl(config: ElvisConfig, dev: torch.device, stats: Optional[Dict
     frames = torch.as_tensor(frames_np, device=dev)
     stage_done("Preprocessing", t0)
 
-    def _restore_framewise(fn, frames_in, maps_in):
-        return _apply_framewise(_carry_tiling(as_pixels_u8(lambda f, m: fn(f, m, b)), fn),
-                                frames_in, maps_in)
+    # frame-axis data parallelism: per-frame stages pad N to a multiple of
+    # the devices and shard; windowed stages also exchange halo frames
+    dp = _DataParallel(config.data_parallel, spatial=config.spatial_devices,
+                       device_type=dev.type)
+
+    def _restore_framewise(fn, frames_in, maps_in, devices=None):
+        """A per-frame restore: frame shards, or for tall frames with a
+        spatial mesh axis configured, frame x height-tile shards."""
+        bound = fn.map(lambda g: _carry_tiling(as_pixels_u8(lambda f, m: g(f, m, b)), g))
+        if height >= config.spatial_tile_threshold and dp.spatial_ok(height, b):
+            return dp.apply_spatial(bound, frames_in, maps_in, halo=config.spatial_halo,
+                                    block_size=b)
+        return dp.apply(bound, frames_in, maps_in, devices=devices)
+
+    def _per_device(resolve, name, fn):
+        """``fn`` (resolved on ``dev``), and the same backend on any other
+        device a stage's mesh asks for."""
+        return _PerDevice(lambda d: resolve(name, config, device=d)[0], {dev: fn})
 
     codec = make_pipeline_codec(
         config.codec, os.path.join(experiment_dir, "codec"), width, height,
@@ -602,15 +750,14 @@ def _run_elvis_impl(config: ElvisConfig, dev: torch.device, stats: Optional[Dict
         r = cache.get_or_run("dampen_encode", _branch_key, _dampen, device=dev)
         streams["dampened"] = r["stream"]
         damp_maps_path, sidecar_sizes["dampen"] = _save_maps(r["levels"], "dampen")
-        decoded[APPROACHES.ELVIS_V2_DAMPEN] = _apply_framewise(
+        decoded[APPROACHES.ELVIS_V2_DAMPEN] = dp.apply(
             as_pixels_u8(lambda f, m: restore_dct_dampen_inverse(f, m, b)),
             r["decoded"], _load_maps(damp_maps_path))
         approach_times[APPROACHES.ELVIS_V2_DAMPEN] += stage_done("DCT Dampen Branch", t0)
 
     # --- stage 7: client stretch ---------------------------------------------
     t0 = time.time()
-    stretched = _apply_framewise(lambda f, m: stretch_frames(f, m, b), shrunk_decoded,
-                                 removal_mask)
+    stretched = dp.apply(lambda f, m: stretch_frames(f, m, b), shrunk_decoded, removal_mask)
     stage_done("ELVIS Stretching", t0)
 
     # --- stages 8-10: restoration through the config-driven backends ---------
@@ -633,6 +780,8 @@ def _run_elvis_impl(config: ElvisConfig, dev: torch.device, stats: Optional[Dict
         "temporal": (APPROACHES.ELVIS_PROP, "ProPainter Inpainting"),
         "neural": (APPROACHES.ELVIS_E2FGVI, "E2FGVI Inpainting"),
     }
+    # each slot's stage shards over only its own devices
+    _inpaint_devices = {"temporal": config.propainter_devices, "neural": config.e2fgvi_devices}
     # the transmitted motion hint, expanded to the fill grid once and shared
     # by every motion-consuming backend
     inpaint_motion = None
@@ -654,7 +803,8 @@ def _run_elvis_impl(config: ElvisConfig, dev: torch.device, stats: Optional[Dict
         decoded[label] = _cached_restore(
             f"inpaint_{name}", prov,
             lambda fn=fn, name=name, mv_arg=mv_arg: _apply_inpaint_backend(
-                name, fn, stretched, removal_mask, b, motion_field=mv_arg))
+                name, _per_device(resolve_inpaint_backend, name, fn), stretched, removal_mask,
+                b, motion_field=mv_arg, dp=dp, devices=_inpaint_devices.get(name)))
         approach_times[label] += stage_done(timer, t0)
 
     # --- stage 9: progressive SR restore -------------------------------------
@@ -667,10 +817,11 @@ def _run_elvis_impl(config: ElvisConfig, dev: torch.device, stats: Optional[Dict
         row_branch[label] = "downsampled"
         t0 = time.time()
 
-        def _run_sr(fn=fn):
-            sr_out = _restore_framewise(fn, down_decoded, levels_dec)
+        def _run_sr(fn=fn, name=name):
+            sr_out = _restore_framewise(_per_device(resolve_sr_backend, name, fn), down_decoded,
+                                        levels_dec, devices=config.realesrgan_devices)
             if config.temporal_blend > 0:
-                sr_out = _apply_temporal(
+                sr_out = dp.apply_temporal(
                     as_pixels_u8(lambda f: temporal_blend(f, config.temporal_blend)),
                     (sr_out,), overlap=8)
             return sr_out
@@ -688,10 +839,12 @@ def _run_elvis_impl(config: ElvisConfig, dev: torch.device, stats: Optional[Dict
         row_branch[label] = "gaussian"
         t0 = time.time()
 
-        def _run_deblur(fn=fn):
-            deblurred = _restore_framewise(fn, blur_decoded, blur_levels_dec)
+        def _run_deblur(fn=fn, name=name):
+            deblurred = _restore_framewise(_per_device(resolve_deblur_backend, name, fn),
+                                           blur_decoded, blur_levels_dec,
+                                           devices=config.instantir_devices)
             if config.temporal_blend > 0:
-                deblurred = _apply_temporal(
+                deblurred = dp.apply_temporal(
                     as_pixels_u8(lambda f: temporal_blend(f, config.temporal_blend)),
                     (deblurred,), overlap=8)
             return deblurred
@@ -722,11 +875,11 @@ def _run_elvis_impl(config: ElvisConfig, dev: torch.device, stats: Optional[Dict
     # --- stage 12: classical benchmarks ------------------------------------------
     if config.generate_opencv_benchmarks:
         t0 = time.time()
-        decoded[APPROACHES.PRESLEY_LANCZOS] = _apply_framewise(
+        decoded[APPROACHES.PRESLEY_LANCZOS] = dp.apply(
             as_pixels_u8(lambda f, m: restore_downsample_lanczos(f, m, b)),
             down_decoded, levels_dec)
         bitrates[APPROACHES.PRESLEY_LANCZOS] = bitrates[APPROACHES.PRESLEY_REALESRGAN]
-        decoded[APPROACHES.PRESLEY_UNSHARP] = _apply_framewise(
+        decoded[APPROACHES.PRESLEY_UNSHARP] = dp.apply(
             as_pixels_u8(lambda f, m: restore_blur_unsharp(f, m, b, config.gaussian_max_rounds)),
             blur_decoded, blur_levels_dec)
         bitrates[APPROACHES.PRESLEY_UNSHARP] = bitrates[APPROACHES.PRESLEY_INSTANTIR]

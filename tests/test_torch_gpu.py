@@ -1,6 +1,8 @@
 """Card-only checks of the port (marker ``gpu``): its two CUDA kernels (the
 transform kernel in its block and frame layouts, and the batched kernel),
-and the NVC codec, the fills and the pipeline on the card against the CPU.
+the NVC codec, the fills and the pipeline on the card against the CPU, the
+halo functions and ``run_elvis`` on logical shards of the card, and the
+trainer's steps on the card against the CPU.
 
 They skip where no CUDA device is present. This file imports no JAX, so
 on a machine with a card and no JAX it runs without the repo's conftest:
@@ -789,3 +791,121 @@ def test_roi_files_on_card_match_cpu(b, tmp_path):
             assert a == c
     for a, c in zip(cpu[3].split(), card[3].split()):
         assert abs(int(a) - int(c)) <= (2 * 12) // 7 + 1  # one of the 8 segments
+
+
+@pytest.fixture
+def logical_card(monkeypatch):
+    """``k`` logical shards of cuda:0 for the port's meshes."""
+    from elvis_tpu_torch.parallel import mesh as pmesh
+
+    def use(k):
+        monkeypatch.setattr(pmesh, "devices",
+                            lambda device_type="cuda": [torch.device("cuda:0")] * k)
+
+    return use
+
+
+@pytest.mark.gpu
+def test_halo_functions_on_logical_shards_of_the_card(logical_card):
+    """A 3-tap temporal mean over 4 logical shards of the card equals the
+    unsharded mean of the clip with its edge replicas (1e-5); the
+    progressive Lanczos restore height-tiled over a data 2 x spatial 2 mesh
+    with a 32-row halo equals the unsharded restore (0.1 max, 1e-3 mean: the
+    JAX package's bound)."""
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.parallel import make_mesh, spatial_tile_map_blocks, temporal_map_overlap
+    from elvis_tpu_torch.restore import progressive_restore
+
+    dev = _cuda()
+    logical_card(4)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((16, 8, 8, 3), generator=g, device=dev)
+
+    def tf(e):
+        p = torch.cat([e[:1], e, e[-1:]])
+        return (p[:-2] + p[1:-1] + p[2:]) / 3.0
+
+    got = temporal_map_overlap(tf, x, make_mesh(), overlap=1)
+    torch.testing.assert_close(got, tf(x), atol=1e-5, rtol=0)
+    frames = torch.rand((2, 128, 32, 3), generator=g, device=dev) * 255
+    degraded, levels = adaptive_downsample(frames, torch.rand((2, 16, 4), generator=g,
+                                                              device=dev), 8)
+    mesh = make_mesh((("data", 2), ("spatial", 2)))
+    out = spatial_tile_map_blocks(lambda f, lv: progressive_restore(f, lv, 8), degraded, levels,
+                                  mesh, 32, 8, data_axis="data")
+    err = (out - progressive_restore(degraded, levels, 8)).abs()
+    assert float(err.max()) < 0.1 and float(err.mean()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_run_elvis_over_logical_shards_of_the_card(logical_card, tmp_path):
+    """run_elvis at 6x96x64 with the default config over 4 logical shards of
+    the card against the unsharded run on the card: the same rows within
+    PR 5's tolerances (bitrate 1%, PSNR 0.1 dB, SSIM 2e-3, LPIPS 1e-3)."""
+    from elvis_tpu_torch.pipeline import ElvisConfig, run_elvis
+
+    _cuda()
+    kw = dict(reference_video="synthetic://moving?frames=6&fps=30", width=96, height=64,
+              enable_vmaf=False, stage_cache=False, target_bitrate_override=100_000,
+              verbose=False)
+    one = run_elvis(ElvisConfig(experiment_dir=str(tmp_path / "one"), **kw), device="cuda")
+    logical_card(4)
+    four = run_elvis(ElvisConfig(experiment_dir=str(tmp_path / "four"), **kw), device="cuda")
+    rows = [k for k, v in one.items() if isinstance(v, dict) and "foreground" in v]
+    assert rows == [k for k, v in four.items() if isinstance(v, dict) and "foreground" in v]
+    for row in rows:
+        a, b = four[row], one[row]
+        assert abs(a["bitrate_mbps"] - b["bitrate_mbps"]) <= 0.01 * b["bitrate_mbps"]
+        for region in ("foreground", "background"):
+            assert abs(a[region]["psnr_mean"] - b[region]["psnr_mean"]) <= 0.1, (row, region)
+            assert abs(a[region]["ssim_mean"] - b[region]["ssim_mean"]) <= 2e-3, (row, region)
+            assert abs(a[region]["lpips_mean"] - b[region]["lpips_mean"]) <= 1e-3, (row, region)
+
+
+@pytest.mark.gpu
+def test_train_steps_on_the_card_match_the_cpu():
+    """Three AdamW steps (lr 1e-3) of a float32 SRNetCompact through the SR
+    loss at full float32 precision, on the card and on the CPU, from the
+    same parameters (a random tail, so no gradient starts at ~0) on the same
+    batches: the parameters within 1e-5 (they move by ~3e-3), the losses
+    within 1e-5 relative."""
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.device import full_fp32
+    from elvis_tpu_torch.models import SRNetCompact
+    from elvis_tpu_torch.parallel import make_mesh
+    from elvis_tpu_torch.restore.progressive import progressive_restore
+    from elvis_tpu_torch.train import Trainer
+
+    dev = _cuda()
+    torch.manual_seed(0)
+    base = SRNetCompact(16, 2, dtype=torch.float32)
+    with torch.no_grad():
+        base.tail.weight.normal_(0, 0.05)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        clean = torch.from_numpy((rng.random((4, 32, 32, 3)) * 255).astype(np.float32))
+        deg, lv = adaptive_downsample(clean, torch.from_numpy(
+            rng.random((4, 4, 4)).astype(np.float32)), 8)
+        batches.append((clean, deg, lv))
+
+    def run(device):
+        model = SRNetCompact(16, 2, dtype=torch.float32)
+        model.load_state_dict(base.state_dict())
+        model.to(device)
+
+        def loss_fn(p, data):
+            up = lambda f: torch.func.functional_call(model, p, (f,))  # noqa: E731
+            out = progressive_restore(data[1], data[2], 8, upsample_fn=up, max_level=3)
+            return torch.mean((out - data[0]) ** 2) / 255.0**2
+
+        tr = Trainer(loss_fn, model, mesh=make_mesh(devices=[0], device_type=device.type),
+                     learning_rate=1e-3, device=device)
+        losses = [float(tr.step(tuple(x.to(device) for x in b))) for b in batches]
+        return tr.params(torch.device("cpu")), losses
+
+    with full_fp32():
+        card, card_losses = run(dev)
+        cpu, cpu_losses = run(torch.device("cpu"))
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-5)
+    assert max(float((card[k] - cpu[k]).abs().max()) for k in cpu) <= 1e-5

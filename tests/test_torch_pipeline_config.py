@@ -110,15 +110,21 @@ def _away_from_default(name):
     return [0] if name.endswith("_devices") else ("w.npz" if name.endswith("_path") else 3)
 
 
-# fields that were pending and are ported now: ROADMAP.md §1 item 4
-PORTED_FIELDS = {"encode_preset": 4, "encode_pix_fmt": 4}
+# fields that were pending and are ported now: ROADMAP.md §1 items 4 and 7
+PORTED_FIELDS = {"encode_preset": 4, "encode_pix_fmt": 4,
+                 **{name: 7 for name in ("propainter_devices", "e2fgvi_devices",
+                                         "realesrgan_devices", "instantir_devices",
+                                         "spatial_devices", "spatial_tile_threshold",
+                                         "spatial_halo")}}
 
 
 @pytest.mark.parametrize("name", sorted({*tcfg.PENDING_FIELDS, *PORTED_FIELDS}))
 def test_pending_field_raises_before_stage_zero(name, tmp_path):
     """A pending field away from its default raises before stage 0, naming
-    its item. A field ported since (the external encoders' preset and pixel
-    format) passes ``check_ported`` and reaches the codec as in JAX."""
+    its item. A field ported since passes ``check_ported``: the external
+    encoders' preset and pixel format reach the codec as in JAX; the item-7
+    device fields and the spatial axis configure the stage mesh (one card:
+    no mesh, tests/test_torch_parallel.py covers the logical meshes)."""
     from elvis_tpu_torch.pipeline import run_elvis
 
     exp = tmp_path / "exp"
@@ -129,6 +135,15 @@ def test_pending_field_raises_before_stage_zero(name, tmp_path):
         assert name not in tcfg.PENDING_FIELDS
         assert PORTED_FIELDS[name] not in set(tcfg.PENDING_FIELDS.values())
         tcfg.check_ported(cfg)
+        if PORTED_FIELDS[name] == 7:
+            from elvis_tpu_torch.pipeline.run import _DataParallel
+
+            dp = _DataParallel(cfg.data_parallel, spatial=cfg.spatial_devices,
+                               device_type="cpu")
+            assert dp.mesh is None and dp.spatial_mesh is None  # one CPU device
+            assert dp._mesh_for(getattr(cfg, name) if name.endswith("_devices") else None) \
+                is None
+            return
         from elvis_tpu.codec.dispatch import make_pipeline_codec as jmake
         from elvis_tpu_torch.codec.dispatch import make_pipeline_codec as tmake
 
@@ -182,8 +197,8 @@ def test_pending_names_raise_before_stage_zero(field, value, item, tmp_path):
 def test_default_config_raises_for_its_temporal_rows():
     """The default config is ported whole: its inpaint list names
     'temporal' and 'neural', which run now, and so do the ProPainter and
-    E2FGVI knobs set away from their defaults. The per-stage device lists
-    of those rows stay with item 7."""
+    E2FGVI knobs set away from their defaults and, since item 7, the
+    per-stage device lists of those rows."""
     tcfg.check_ported(tcfg.ElvisConfig())
     assert tcfg.ElvisConfig().inpaint_backends == ["diffusion", "temporal", "neural"]
     tcfg.check_ported(tcfg.ElvisConfig(
@@ -195,8 +210,8 @@ def test_default_config_raises_for_its_temporal_rows():
         e2fgvi_parallel_chunk_length=4, e2fgvi_chunk_overlap=6,
         inpaint_params_path="w.npz"))
     for name in ("propainter_devices", "e2fgvi_devices"):
-        with pytest.raises(NotImplementedError, match=rf"{name}=.*ROADMAP\.md §1 item 7"):
-            tcfg.check_ported(tcfg.ElvisConfig(**{name: [0]}))
+        tcfg.check_ported(tcfg.ElvisConfig(**{name: [0, 1]}))
+    assert 7 not in tcfg._ITEMS and "data_parallel" not in tcfg.ABSORBED_FIELDS
 
 
 def test_cli_runs_on_the_card_only(tmp_path, monkeypatch):
