@@ -16,6 +16,7 @@ __all__ = [
     "split_into_blocks",
     "combine_blocks",
     "upsample_map",
+    "downsample_mask",
     "blockwise_reduce",
     "dilate_block_mask",
 ]
@@ -53,6 +54,17 @@ def upsample_map(block_map: torch.Tensor, block_size: int) -> torch.Tensor:
     """``(..., By, Bx) -> (..., By*b, Bx*b)`` by nearest-neighbour repetition."""
     x = torch.repeat_interleave(block_map, block_size, dim=-1)
     return torch.repeat_interleave(x, block_size, dim=-2)
+
+
+def downsample_mask(pixel_mask: torch.Tensor, block_size: int,
+                    threshold: float = 0.5) -> torch.Tensor:
+    """Reduce a pixel mask ``(..., H, W)`` to a per-block bool map by
+    mean-pooling and thresholding (a block's mean strictly above
+    ``threshold``)."""
+    *lead, h, w = pixel_mask.shape
+    by, bx = block_grid_shape(h, w, block_size)
+    x = pixel_mask.reshape(*lead, by, block_size, bx, block_size).float()
+    return x.mean(dim=(-3, -1)) > threshold
 
 
 def dilate_block_mask(mask: torch.Tensor, radius: int) -> torch.Tensor:

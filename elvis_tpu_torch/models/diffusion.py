@@ -1,5 +1,5 @@
 """DiffusionRestorer — conditional diffusion restoration, the InstantIR slot
-(port of ``elvis_tpu.models.diffusion``, inference only).
+(port of ``elvis_tpu.models.diffusion``).
 
   * ``_CondUNet``: a compact pixel-space UNet that predicts the CLEAN
     image as a residual over the degraded conditioning; its float32 head
@@ -10,13 +10,17 @@
     schedule;
   * ``restore_adaptive``: one conditioned trajectory; a block of strength
     ``s`` takes the x0 prediction after ``s * steps_per_round`` steps
-    (strength 0 keeps the input).
+    (strength 0 keeps the input);
+  * ``loss``: the training objective, the x0-prediction mean square error
+    on a noised random mix of the clean and the degraded frame.
 
 Randomness: the SDEdit noise is an argument (``noise=``), or drawn from a
 ``torch.Generator`` the caller passes (``generator=``; a fresh generator
 seeded 0 when neither is given). The JAX package draws
 ``jax.random.normal(key, cond.shape)``, which PyTorch cannot reproduce:
-the parity tests hand both packages the same noise array.
+the parity tests hand both packages the same noise array. ``loss`` takes
+its timesteps, mix weights and noise as arguments (``t=``, ``gamma=``,
+``noise=``) or draws them from the ``generator`` it is given.
 
 Public layout is NHWC: frames ``(N, H, W, 3)`` in [0, 255]. Numerics
 mirror the flax model: the body (and the time-embedding dense layer) in
@@ -29,12 +33,13 @@ both helpers are the deblur net's. H and W must be even.
 from __future__ import annotations
 
 import math
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from elvis_tpu_torch.core.blocks import upsample_map
 from elvis_tpu_torch.device import full_fp32
@@ -139,6 +144,43 @@ class DiffusionRestorer(nn.Module):
             eps_impl = (x - float(np.sqrt(ab_t)) * x0_pred) / float(np.sqrt(f32(1) - ab_t))
             x = float(np.sqrt(ab_prev)) * x0_pred + float(np.sqrt(f32(1) - ab_prev)) * eps_impl
             yield x0_pred
+
+    def loss(self, clean: torch.Tensor, degraded: torch.Tensor,
+             generator: Optional[torch.Generator] = None, *,
+             t: Optional[torch.Tensor] = None, gamma: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None,
+             params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """x0-prediction mean square error on TRAJECTORY-CONSISTENT inputs:
+        the net sees ``gamma * clean + (1 - gamma) * degraded`` (in [-1, 1])
+        noised to a random ``t`` in [1, num_train_steps), the states a
+        restoration trajectory visits, and must predict the clean frame
+        from it and the degraded conditioning. ``t`` ``(N,)`` int, ``gamma``
+        ``(N,1,1,1)`` in [0, 1) and ``noise`` (clean's shape) are drawn
+        from ``generator`` where not given, in that order. ``params``
+        (the UNet's ``{name: tensor}``) replaces the UNet's own parameters
+        (``torch.func.functional_call``), as a trainer passes them."""
+        n = clean.shape[0]
+        dev = clean.device
+        x0 = clean.float() / 127.5 - 1.0
+        cond = degraded.float() / 127.5 - 1.0
+        if generator is None and (t is None or gamma is None or noise is None):
+            # a fixed default seed would repeat the same draws every step
+            raise ValueError("DiffusionRestorer.loss: pass t, gamma and noise, or a "
+                             "generator to draw them from")
+        if t is None:
+            t = torch.randint(1, self.num_train_steps, (n,), generator=generator, device=dev)
+        if gamma is None:
+            gamma = torch.rand((n, 1, 1, 1), generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator, device=dev)
+        t = t.to(dev).long()
+        ab = torch.as_tensor(self.alpha_bar, device=dev)[t][:, None, None, None]
+        base = gamma.to(dev).float() * x0 + (1.0 - gamma.to(dev).float()) * cond
+        x_noisy = torch.sqrt(ab) * base + torch.sqrt(1 - ab) * noise.to(dev).float()
+        args = (x_noisy, cond, _time_embedding(t))
+        res = self.unet(*args) if params is None else functional_call(self.unet, params, args)
+        x0_pred = torch.clamp(cond + res, -1.0, 1.0)
+        return torch.mean((x0_pred - x0) ** 2)
 
     @staticmethod
     def _noise(cond: torch.Tensor, noise: Optional[torch.Tensor],

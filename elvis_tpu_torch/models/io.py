@@ -27,7 +27,8 @@ import torch
 
 from elvis_tpu_torch.device import resolve_device
 from elvis_tpu_torch.models.deblur_unet import DeblurUNet
-from elvis_tpu_torch.models.diffusion import DiffusionRestorer
+from elvis_tpu_torch.metrics.perceptual import PerceptualNet
+from elvis_tpu_torch.models.diffusion import DiffusionRestorer, _CondUNet
 from elvis_tpu_torch.models.inpaint_net import InpaintNet
 from elvis_tpu_torch.models.saliency_net import SaliencyNet
 from elvis_tpu_torch.models.srnet import SRNet, SRNetCompact
@@ -117,6 +118,12 @@ def model_meta(model: torch.nn.Module) -> Dict:
     if isinstance(model, DeblurUNet):
         return {"features": model.features, "levels": model.levels,
                 "max_strength": model.max_strength}
+    if isinstance(model, InpaintNet):
+        return {"features": model.features, "temporal_window": model.temporal_window}
+    if isinstance(model, (SaliencyNet, _CondUNet)):
+        return {"features": model.features}
+    if isinstance(model, PerceptualNet):  # load_perceptual reads the widths off the kernels
+        return {}
     raise TypeError(f"no weights-file meta for {type(model).__name__}")
 
 

@@ -9,7 +9,13 @@ runs on the extended shard on its device, and the result is trimmed and
 gathered onto the input's device.
 
 Global edges: :func:`temporal_map_overlap` and :func:`spatial_tile_map`
-replicate the edge frame or row (they do not wrap);
+replicate the edge frame or row (they do not wrap); a per-pair array of
+:func:`temporal_map_overlap` named in ``zero_edge`` (a motion field: ``mv[t]``
+the motion from frame t-1 to t) gets zeros there instead, since replicated
+frames do not move. The JAX package replicates the field too, which puts
+the last pair's motion between copies of the last frame: the port's
+sharded fill with a motion hint equals its unsharded fill, where JAX's
+differs on the clip's last frame (an intended divergence);
 :func:`spatial_tile_map_blocks` slides the window at the top and bottom
 tiles instead, all ``2*halo`` rows from the inward neighbour, so the
 restorer's own edge handling matches the unsharded call.
@@ -21,7 +27,7 @@ Inputs are tensors (the whole array, on any device) or
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Sequence
 
 import torch
 
@@ -46,27 +52,33 @@ def _split(x, devs: List[torch.device], dim: int) -> List[torch.Tensor]:
     return [c.to(d) for c, d in zip(x.chunk(k, dim), devs)]
 
 
-def _edge_halo(locs: List[torch.Tensor], i: int, overlap: int, dim: int):
+def _edge_halo(locs: List[torch.Tensor], i: int, overlap: int, dim: int, zero: bool = False):
     """(before, after) halo of shard ``i`` along ``dim`` from its ring
     neighbours; the global first and last shards replicate their own edge
-    slice instead of wrapping."""
+    slice instead of wrapping, or hold zeros with ``zero``."""
     loc = locs[i]
     size = loc.shape[dim]
     reps = [1] * loc.ndim
     reps[dim] = overlap
+
+    def edge(start):
+        if zero:
+            return torch.zeros_like(loc.narrow(dim, 0, 1)).repeat(reps)
+        return loc.narrow(dim, start, 1).repeat(reps)
+
     if i == 0:
-        before = loc.narrow(dim, 0, 1).repeat(reps)
+        before = edge(0)
     else:
         before = locs[i - 1].narrow(dim, size - overlap, overlap).to(loc.device)
     if i == len(locs) - 1:
-        after = loc.narrow(dim, size - 1, 1).repeat(reps)
+        after = edge(size - 1)
     else:
         after = locs[i + 1].narrow(dim, 0, overlap).to(loc.device)
     return before, after
 
 
 def temporal_map_overlap(fn: Callable, frames, mesh: Mesh, overlap: int,
-                         axis: str = "data") -> torch.Tensor:
+                         axis: str = "data", zero_edge: Sequence[bool] = ()) -> torch.Tensor:
     """Apply a windowed temporal model per shard with halo context.
 
     ``frames`` is one array or a tuple of arrays sharing the leading
@@ -74,7 +86,9 @@ def temporal_map_overlap(fn: Callable, frames, mesh: Mesh, overlap: int,
     halo and ``fn`` receives the extended versions in order. ``fn`` maps
     ``(n_local + 2*overlap, ...)`` to the same length; each shard keeps its
     own ``n_local`` frames. N must divide by the axis size (pad with
-    ``shard_frames``) and ``n_local >= overlap``."""
+    ``shard_frames``) and ``n_local >= overlap``. ``zero_edge[k]`` true:
+    array k's halo past the clip's ends is zeros (a per-pair motion field),
+    not its replicated edge frame."""
     is_multi = isinstance(frames, (tuple, list))
     arrays = tuple(frames) if is_multi else (frames,)
     devs = mesh.axis_devices(axis)
@@ -89,8 +103,9 @@ def temporal_map_overlap(fn: Callable, frames, mesh: Mesh, overlap: int,
     outs = []
     for i in range(len(devs)):
         ext = []
-        for locs in shards:
-            before, after = _edge_halo(locs, i, overlap, 0)
+        for k, locs in enumerate(shards):
+            zero = k < len(zero_edge) and bool(zero_edge[k])
+            before, after = _edge_halo(locs, i, overlap, 0, zero)
             ext.append(torch.cat([before, locs[i], after]))
         out = fn(*ext) if is_multi else fn(ext[0])
         outs.append(out[overlap: overlap + n_local].to(home))

@@ -7,7 +7,8 @@ and ``parameters.config`` of ``analysis_results.json`` -- is the same dict.
 Each field is either LIVE (it parameterizes a mechanism of the port), listed
 in ``ABSORBED_FIELDS`` with the reason it has no counterpart, or listed in
 ``PENDING_FIELDS`` with the ``ROADMAP.md`` item whose mechanism is not ported
-yet. ``check_ported`` raises ``NotImplementedError`` for a pending field set
+yet (none is left: the search drivers read ``minimal_figures``).
+``check_ported`` raises ``NotImplementedError`` for a pending field set
 away from its default and for a backend or codec name that is not ported
 yet, so a run fails before it spends time on stage 0.
 
@@ -66,14 +67,10 @@ ABSORBED_FIELDS = {
 # Fields whose mechanism the port does not have yet -> the ROADMAP.md §1
 # item that brings it. Set away from its default, each raises in
 # ``check_ported`` before stage 0.
-PENDING_FIELDS = {
-    # 8: train, search, CLI extras (the search drivers' figure roll-up)
-    "minimal_figures": 8,
-}
+PENDING_FIELDS: Dict[str, int] = {}
 
-_ITEMS = {
-    8: "train, search, CLI extras",
-}
+# item number -> what it brings, for the message; every item is ported
+_ITEMS: Dict[int, str] = {}
 
 # backend and codec names the JAX package knows and the port does not yet:
 # field -> (names, item). Every name is ported; a name neither package

@@ -40,8 +40,9 @@ tall restore in height tiles over a data x spatial mesh
   ELVIS v2 Dampen        DCT dampening (optional)    inverse filter
   (+ extra rows per sr_backends/deblur_backends/inpaint_backends entries)
 
-Not ported yet, and refused by ``check_ported`` before stage 0:
-``minimal_figures``.
+Every field of the JAX package's config is ported: ``check_ported`` refuses
+nothing (``minimal_figures`` is read by the search drivers' figure roll-up,
+``elvis_tpu_torch.search``, not by a stage).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ import re
 import time
 from collections import defaultdict
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -335,17 +336,25 @@ class _DataParallel:
                 for i, d in enumerate(sharded[0].sharding.devices)]
         return torch.cat(outs)[:n]
 
-    def apply_temporal(self, fn, arrays, overlap: int, devices=None) -> torch.Tensor:
+    def apply_temporal(self, fn, arrays, overlap: int, devices=None,
+                       pairwise: Tuple[bool, ...] = ()) -> torch.Tensor:
+        """A windowed op over frame shards with ``overlap`` halo frames.
+        ``pairwise[k]`` marks a per-pair array (the motion field): past the
+        clip's end, where the frames are repeats of the last, it is zero."""
         mesh = self._mesh_for(devices)
         home = arrays[0].device
         n = int(arrays[0].shape[0])
         size = mesh.shape["data"] if mesh is not None else 1
         if mesh is None or (n + (-n) % size) // size < overlap:
             return _apply_temporal(_on(fn, home), arrays, overlap)
-        padded = tuple(shard_frames(a, mesh)[0] for a in arrays)
+        pad = (-n) % size
+        padded = tuple(shard_frames(torch.cat([a, a.new_zeros((pad, *a.shape[1:]))])
+                                    if k < len(pairwise) and pairwise[k] and pad else a,
+                                    mesh)[0]
+                       for k, a in enumerate(arrays))
         out = temporal_map_overlap(
             lambda *ext: _apply_temporal(_on(fn, ext[0].device), ext, overlap),
-            padded, mesh, overlap)
+            padded, mesh, overlap, zero_edge=pairwise)
         return out.to(home)[:n]
 
     def spatial_ok(self, height: int, block_size: int) -> bool:
@@ -375,7 +384,8 @@ def _apply_inpaint_backend(name, fn, stretched, removal_mask, b, motion_field=No
     backend runs with its own ``temporal_overlap`` of context at every
     shard and chunk boundary; the motion field rides as one more frame-axis
     array, so a chunk's field is sliced with its frames (a chunk's first
-    per-pair entry is never used). A backend with ``split`` runs in two
+    per-pair entry is never used), and past the clip's end, where a shard's
+    halo repeats the last frame, the field is zero motion. A backend with ``split`` runs in two
     phases, the seed and then its ``post``, each at its own overlap: the
     net's feature maps never span the seed's wide window. seed + post
     equals the fused backend. ``fn`` is a callable or a ``_PerDevice``."""
@@ -395,7 +405,8 @@ def _apply_inpaint_backend(name, fn, stretched, removal_mask, b, motion_field=No
             call = g_pd.map(lambda g: _carry_tiling(lambda f, m, mv: g(f, m, b, mv=mv), g))
             arrays = (stretched, removal_mask, motion_field)
         return dp.apply_temporal(call, arrays, devices=devices,
-                                 overlap=getattr(g_pd.on(home), "temporal_overlap", 16))
+                                 overlap=getattr(g_pd.on(home), "temporal_overlap", 16),
+                                 pairwise=(False, False, True))
 
     if getattr(fn.on(home), "split", None) is None:
         return windowed(fn)

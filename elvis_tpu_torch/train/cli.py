@@ -14,13 +14,16 @@ so an SR net starts exactly at progressive Lanczos (clamped) and the deblur
 net at the identity; tests start them from the JAX package's initial
 parameters instead.
 
-The photo pool (``photo_fraction``, ``val_every``) needs PIL and the
-packages that ship the photographs (``train.data.photo_patch_pool``);
-without them it raises. ``--photo-fraction 0`` trains on the procedural
-sources alone.
-
-Not ported yet (ROADMAP.md §1 item 8): the ``diffusion``, ``inpaint``,
-``perceptual`` and ``saliency`` trainers.
+The diffusion trainer trains the conditional UNet through
+``DiffusionRestorer.loss`` on heavy adaptive-blur pairs, the inpaint trainer
+the InpaintNet over the temporal fill's seed, the perceptual trainer the
+LPIPS backbone by a 2AFC ranking hinge, the saliency trainer the SaliencyNet
+against the motion-contrast teacher. The photo pool (``photo_fraction``,
+``val_every``) needs PIL and the packages that ship the photographs
+(``train.data.photo_patch_pool``); without them it raises.
+``--photo-fraction 0`` trains on the procedural sources alone (the inpaint,
+perceptual and saliency trainers take the fraction too: the JAX package
+always mixes photographs in there, at 0.5, 0.5 and 0.3).
 """
 
 from __future__ import annotations
@@ -495,19 +498,282 @@ def train_deblur(steps: int, ckpt_dir: Optional[str], lr: float = 2e-4, batch: i
     return trainer
 
 
-def _not_ported(name: str) -> Callable:
-    def trainer(*args, **kwargs):
-        raise NotImplementedError(f"the {name!r} trainer is not ported to elvis_tpu_torch yet: "
-                                  "ROADMAP.md §1 item 8 (train, search, CLI extras)")
+def _one_device(dev: torch.device):
+    """A mesh of ``dev`` alone: the inpaint and saliency batches are one clip
+    whose frames the nets see together (temporal context), so splitting it
+    over data shards would cut that context; the JAX package's compiled step
+    computes the global function whatever the layout."""
+    from elvis_tpu_torch.parallel import make_mesh
 
-    trainer.__name__ = f"train_{name}"
+    return make_mesh(devices=[dev], device_type=dev.type)
+
+
+def inpaint_loss(model: nn.Module, block_size: int = 8) -> Callable:
+    """``loss_fn(params, (clean, seeded, mask))``: the InpaintNet's mean
+    square error / 255^2 against the clean clip, from the propagation seed."""
+
+    def loss_fn(p, data):
+        clean, seeded, mask = data
+        pred = functional_call(model, p, (seeded, mask, block_size))
+        return torch.mean((pred - clean) ** 2) / 255.0**2
+
+    return loss_fn
+
+
+def train_inpaint(steps: int, ckpt_dir: Optional[str], lr: float = 2e-4, frames: int = 8,
+                  patch: int = 64, log_every: int = 50, photo_fraction: float = 0.5,
+                  device: "str | torch.device" = "cuda"):
+    """InpaintNet on the input it sees at inference: a panning clip (a
+    ``photo_fraction`` chance of a pan over a real photograph, else
+    natural-statistics content), a quarter of its blocks holed, the holes
+    pre-filled by the temporal propagation fill (``restore_removal_temporal``,
+    as the 'neural' backend seeds the net), so the net learns the residual
+    polish over propagation. Constant learning rate, no mesh."""
+    from elvis_tpu_torch.core.blocks import upsample_map
+    from elvis_tpu_torch.models import InpaintNet
+    from elvis_tpu_torch.restore.inpaint import restore_removal_temporal
+    from elvis_tpu_torch.train.data import (
+        _bernoulli, natural_video_batch, photo_patch_pool, photo_video_batch)
+    from elvis_tpu_torch.train.trainer import Trainer
+
+    b = 8
+    dev = resolve_device(device)
+    model = InpaintNet().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED)
+    max_pan = 3
+    pool = (torch.as_tensor(photo_patch_pool(patch + 2 * max_pan * frames, True, 512, 2),
+                            device=dev) if photo_fraction > 0 else None)
+
+    @torch.no_grad()
+    def make_batch():
+        if pool is not None and bool(_bernoulli(gen, photo_fraction, ())):
+            clip = photo_video_batch(gen, pool, frames, patch, patch, max_pan)
+        else:
+            clip = natural_video_batch(gen, frames, patch, patch)
+        mask = (torch.rand((frames, patch // b, patch // b), generator=gen, device=dev)
+                < 0.25).to(torch.int8)
+        holed = torch.where(upsample_map(mask.bool(), b)[..., None], 0.0, clip)
+        return clip, restore_removal_temporal(holed, mask, b), mask
+
+    trainer = Trainer(inpaint_loss(model, b), model, mesh=_one_device(dev), learning_rate=lr,
+                      ckpt_dir=ckpt_dir, device=dev)
+    _loop(trainer, make_batch, steps, "inpaint", log_every, lambda step, steps_: None, dev)
+    trainer.sync_model()
+    trainer.save("inpaint")
     return trainer
 
 
-train_diffusion = _not_ported("diffusion")
-train_inpaint = _not_ported("inpaint")
-train_perceptual = _not_ported("perceptual")
-train_saliency = _not_ported("saliency")
+def diffusion_loss(d: nn.Module) -> Callable:
+    """``loss_fn(params, (clean, degraded, t, gamma, noise))``: the
+    restorer's ``loss`` under the UNet parameters ``params``, at the batch's
+    own timesteps, mix weights and noise (drawn in the batch maker, so a
+    data-sharded step splits them with their samples)."""
+
+    def loss_fn(p, data):
+        clean, degraded, t, gamma, noise = data
+        return d.loss(clean, degraded, t=t, gamma=gamma, noise=noise, params=p)
+
+    return loss_fn
+
+
+def train_diffusion(steps: int, ckpt_dir: Optional[str], lr: float = 2e-4, batch: int = 16,
+                    patch: int = 64, max_rounds: int = 10, log_every: int = 50,
+                    photo_fraction: float = 0.5, val_every: int = 0, ema_decay: float = 0.999,
+                    device: "str | torch.device" = "cuda"):
+    """The conditional diffusion restorer (the InstantIR slot): x0-residual
+    prediction conditioned on the adaptively blurred frame. The blur
+    strengths are biased HEAVY (scores ~ sqrt(U), median round 7: the regime
+    where the slot must beat the classical restore); a ``photo_fraction`` of
+    photo patches, photometric jitter; constant learning rate on the DP x TP
+    mesh, EMA, and with ``val_every`` the SAMPLED restoration (4 DDIM steps)
+    on the held-out heavy-blur photo strip picks the saved checkpoint. The
+    UNet's weights land in ``<ckpt_dir>/diffusion.npz`` (``load_diffusion``)."""
+    import copy
+
+    from elvis_tpu_torch.degrade import adaptive_blur
+    from elvis_tpu_torch.models import DiffusionRestorer
+    from elvis_tpu_torch.train.data import (
+        _bernoulli, _randint, natural_frames, photo_patch_pool, photometric_augment)
+    from elvis_tpu_torch.train.trainer import Trainer
+
+    b = 8
+    dev = resolve_device(device)
+    d = DiffusionRestorer().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED)
+    pool = (torch.as_tensor(photo_patch_pool(patch, True, 2048, 0), device=dev)
+            if photo_fraction > 0 else None)
+
+    @torch.no_grad()
+    def make_batch():
+        clean = natural_frames(gen, batch, patch, patch)
+        if pool is not None:
+            photo = pool[_randint(gen, 0, pool.shape[0], (batch,))]
+            clean = torch.where(_bernoulli(gen, photo_fraction, (batch, 1, 1, 1)), photo, clean)
+        clean = photometric_augment(gen, clean)
+        # heavy-blur bias: scores ~ sqrt(U), median round 7
+        scores = torch.sqrt(torch.rand((batch, patch // b, patch // b), generator=gen,
+                                       device=dev))
+        degraded, _ = adaptive_blur(clean, scores, b, max_rounds)
+        t = torch.randint(1, d.num_train_steps, (batch,), generator=gen, device=dev)
+        gamma = torch.rand((batch, 1, 1, 1), generator=gen, device=dev)
+        noise = torch.randn(clean.shape, generator=gen, device=dev)
+        return clean, degraded, t, gamma, noise
+
+    trainer = Trainer(diffusion_loss(d), d.unet, mesh=_mesh(dev.type), learning_rate=lr,
+                      ckpt_dir=ckpt_dir, device=dev)
+    val_psnr, baseline = None, ""
+    if val_every > 0:
+        vp = 128
+        val_clean = torch.as_tensor(photo_patch_pool(vp, False, 16, 1), device=dev)
+        vgen = torch.Generator(device=dev).manual_seed(123)
+        # heavy-blur validation: the regime the slot must win
+        val_scores = 0.5 + 0.5 * torch.rand((16, vp // b, vp // b), generator=vgen, device=dev)
+        val_degraded, _ = adaptive_blur(val_clean, val_scores, b, max_rounds)
+        print(f"diffusion val blurred-input psnr: {_psnr(val_degraded, val_clean):.3f}",
+              flush=True)
+        val_d = copy.deepcopy(d)
+
+        def val_psnr(p):
+            val_d.unet.load_state_dict(p)
+            out = val_d.sample(val_degraded, steps=4,
+                               generator=torch.Generator(device=dev).manual_seed(5))
+            return _psnr(out, val_clean)
+
+    on_step, finish = _ema_and_val(trainer, ema_decay, val_every, "diffusion", val_psnr,
+                                   baseline)
+    _loop(trainer, make_batch, steps, "diffusion", log_every, on_step, dev)
+    finish()
+    trainer.sync_model()
+    trainer.save("diffusion")
+    return trainer
+
+
+def perceptual_endpoints(clean: torch.Tensor, noise: torch.Tensor, qp: torch.Tensor,
+                         apply: torch.Tensor) -> torch.Tensor:
+    """The ranking ladders' heavy ends (``(4,B,H,W,3)``): blur (two 5-tap
+    sigma-2 gaussians), area-down 4x / linear-up, additive noise (40 grey
+    levels x ``noise``, clipped), and codec artifacts (``codec_noise_at``
+    at ``qp``, where ``apply``)."""
+    from elvis_tpu_torch.ops.filter import gaussian_blur
+    from elvis_tpu_torch.ops.resize import resize
+    from elvis_tpu_torch.train.data import codec_noise_at
+
+    h, w = clean.shape[1], clean.shape[2]
+    blur = gaussian_blur(gaussian_blur(clean, 5, 2.0), 5, 2.0)
+    down = resize(resize(clean, (h // 4, w // 4), method="area"), (h, w), method="linear")
+    noisy = torch.clamp(clean + 40.0 * noise, 0, 255)
+    return torch.stack([blur, down, noisy, codec_noise_at(clean, qp, apply)])
+
+
+def perceptual_loss(model: nn.Module, margin: float = 0.05) -> Callable:
+    """``loss_fn(params, (clean, weak, strong))``: the 2AFC ranking hinge
+    (``d(clean, weak) + margin <= d(clean, strong)``, the LPIPS formula on
+    the backbone under ``params``) plus the identity anchor
+    ``d(clean, clean)``."""
+    from elvis_tpu_torch.metrics.perceptual import lpips_pairwise
+
+    def loss_fn(p, data):
+        clean, weak, strong = data
+        net = lambda x: functional_call(model, p, (x,))  # noqa: E731
+        d_weak = lpips_pairwise(net, clean, weak)
+        d_strong = lpips_pairwise(net, clean, strong)
+        rank = torch.clamp(margin + d_weak - d_strong, min=0.0).mean()
+        return rank + lpips_pairwise(net, clean, clean).mean()
+
+    return loss_fn
+
+
+def train_perceptual(steps: int, ckpt_dir: Optional[str], lr: float = 1e-4, batch: int = 12,
+                     patch: int = 64, log_every: int = 50, photo_fraction: float = 0.5,
+                     device: "str | torch.device" = "cuda"):
+    """LPIPS-style 2AFC ranking training of the PerceptualNet backbone: for
+    a clean patch (a ``photo_fraction`` of photo patches, else natural
+    content) and two strengths ``t1 < t2`` along a path to one of four heavy
+    ends (``perceptual_endpoints``), the metric must rank d(clean, weak) <
+    d(clean, strong) by a margin; the identity anchor keeps d(x, x) at ~0.
+    Constant learning rate on the DP x TP mesh."""
+    from elvis_tpu_torch.metrics.perceptual import PerceptualNet
+    from elvis_tpu_torch.train.data import (
+        _bernoulli, _normal, _randint, _uniform, natural_frames, photo_patch_pool)
+    from elvis_tpu_torch.train.trainer import Trainer
+
+    dev = resolve_device(device)
+    model = PerceptualNet().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED)
+    pool = (torch.as_tensor(photo_patch_pool(patch, True, 1024, 3), device=dev)
+            if photo_fraction > 0 else None)
+
+    @torch.no_grad()
+    def make_batch():
+        shape = (batch, 1, 1, 1)
+        clean = natural_frames(gen, batch, patch, patch)
+        if pool is not None:
+            photo = pool[_randint(gen, 0, pool.shape[0], (batch,))]
+            clean = torch.where(_bernoulli(gen, photo_fraction, shape), photo, clean)
+        ends = perceptual_endpoints(clean, _normal(gen, clean.shape),
+                                    _uniform(gen, (batch,), 16.0, 38.0),
+                                    _bernoulli(gen, 0.7, (batch,)))
+        end = ends[_randint(gen, 0, ends.shape[0], (batch,)), torch.arange(batch, device=dev)]
+        # t2's step shares t1's draw, as the JAX package's one key gives
+        u = torch.rand(shape, generator=gen, device=dev)
+        t1 = 0.05 + 0.5 * u
+        t2 = t1 + (0.25 + 0.2 * u)
+        return clean, (1 - t1) * clean + t1 * end, (1 - t2) * clean + t2 * end
+
+    trainer = Trainer(perceptual_loss(model), model, mesh=_mesh(dev.type), learning_rate=lr,
+                      ckpt_dir=ckpt_dir, device=dev)
+    _loop(trainer, make_batch, steps, "perceptual", log_every, lambda step, steps_: None, dev)
+    trainer.sync_model()
+    trainer.save("perceptual")
+    return trainer
+
+
+def saliency_loss(model: nn.Module) -> Callable:
+    """``loss_fn(params, (clip, target))``: the net's mean square error
+    against the teacher's saliency map."""
+
+    def loss_fn(p, data):
+        clip, target = data
+        return torch.mean((functional_call(model, p, (clip,)) - target) ** 2)
+
+    return loss_fn
+
+
+def train_saliency(steps: int, ckpt_dir: Optional[str], lr: float = 1e-3, frames: int = 8,
+                   patch: int = 64, log_every: int = 50, photo_fraction: float = 0.3,
+                   device: "str | torch.device" = "cuda"):
+    """Distill the motion-contrast heuristic (the bootstrap teacher) into
+    the SaliencyNet, on short clips with coherent motion (a
+    ``photo_fraction`` chance of a pan over a real photograph, else a rolled
+    synthetic frame). Constant learning rate, no mesh."""
+    from elvis_tpu_torch.models import SaliencyNet
+    from elvis_tpu_torch.scoring import motion_contrast_saliency
+    from elvis_tpu_torch.train.data import (
+        _bernoulli, photo_patch_pool, photo_video_batch, synthetic_video_batch)
+    from elvis_tpu_torch.train.trainer import Trainer
+
+    dev = resolve_device(device)
+    model = SaliencyNet().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED)
+    max_pan = 3
+    pool = (torch.as_tensor(photo_patch_pool(patch + 2 * max_pan * frames, True, 256, 4),
+                            device=dev) if photo_fraction > 0 else None)
+
+    @torch.no_grad()
+    def make_batch():
+        if pool is not None and bool(_bernoulli(gen, photo_fraction, ())):
+            clip = photo_video_batch(gen, pool, frames, patch, patch, max_pan)
+        else:
+            clip = synthetic_video_batch(gen, frames, patch, patch)
+        return clip, motion_contrast_saliency(clip)
+
+    trainer = Trainer(saliency_loss(model), model, mesh=_one_device(dev), learning_rate=lr,
+                      ckpt_dir=ckpt_dir, device=dev)
+    _loop(trainer, make_batch, steps, "saliency", log_every, lambda step, steps_: None, dev)
+    trainer.sync_model()
+    trainer.save("saliency")
+    return trainer
+
 
 _TRAINERS = {
     "srnet": train_srnet,
@@ -533,7 +799,7 @@ def main(argv=None, device: "str | torch.device" = "cuda") -> int:
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--val-every", type=int, default=0,
                    help="EMA + best-checkpoint selection on the held-out photo strip every "
-                        "N steps (srnet*/deblur)")
+                        "N steps (srnet*/deblur/diffusion)")
     p.add_argument("--features", type=int, default=None,
                    help="student conv width (srnet_student/srnet_4k)")
     p.add_argument("--num-convs", type=int, default=None,

@@ -909,3 +909,41 @@ def test_train_steps_on_the_card_match_the_cpu():
         cpu, cpu_losses = run(torch.device("cpu"))
     np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-5)
     assert max(float((card[k] - cpu[k]).abs().max()) for k in cpu) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["diffusion", "inpaint", "saliency", "perceptual"])
+def test_new_trainers_take_a_step_on_the_card(name, tmp_path):
+    """Each of the diffusion, inpaint, saliency and perceptual trainers
+    takes a step on the card at small sizes (procedural data: the card's
+    machine has no PIL): a finite loss, the parameters on the card, the
+    checkpoint written."""
+    from elvis_tpu_torch.train import cli
+
+    dev = _cuda()
+    kw = dict(batch=4, patch=32) if name in ("diffusion", "perceptual") else dict(frames=4,
+                                                                                 patch=32)
+    tr = getattr(cli, f"train_{name}")(1, str(tmp_path), photo_fraction=0.0, device=dev,
+                                       log_every=100, **kw)
+    assert len(tr.losses) == len(tr.step_ms) == 1 and np.isfinite(tr.losses[0])
+    assert all(p.is_cuda for p in tr.params().values())
+    assert (tmp_path / f"{name}.npz").is_file()
+
+
+@pytest.mark.gpu
+def test_diffusion_trainer_launches_the_transform_kernel(monkeypatch):
+    """The batch maker's ``adaptive_blur`` launches the transform kernel
+    once a step and never runs its plain version."""
+    from elvis_tpu_torch.kernels import block_transform as bt
+    from elvis_tpu_torch.train.cli import train_diffusion
+
+    dev = _cuda()
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain transform ran on the card's path")
+
+    monkeypatch.setattr(bt, "_plain_table_to_frames", plain)
+    before = bt.LAUNCHES["block_transform"]
+    tr = train_diffusion(3, None, batch=4, patch=32, photo_fraction=0.0, device=dev,
+                         log_every=100)
+    assert bt.LAUNCHES["block_transform"] == before + 3 and len(tr.losses) == 3

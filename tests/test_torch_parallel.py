@@ -263,6 +263,93 @@ def test_temporal_fill_sharded_equals_unsharded(logical):
     assert torch.equal(got, fn(holed, mask))
 
 
+def _hinted_pan(n, h=24, w=32, pan=8, seed=13):
+    """A clip panning ``pan`` px (a block) a frame to the left, 20% of its
+    blocks holed, and the pan's true per-pair motion field (frame 0 zeros),
+    as the client's motion hint gives it. The last frame's one hole has a
+    hole as its source in the frame before, so only a frame after the clip
+    could fill it by propagation: where the halo claims one."""
+    from elvis_tpu_torch.core.blocks import upsample_map
+
+    rng = np.random.default_rng(seed)
+    wide = (rng.random((h, w + pan * n, 3)) * 255).astype(np.float32)
+    clip = torch.from_numpy(np.stack([wide[:, pan * t: pan * t + w]
+                                      for t in range(n)]).astype(np.uint8))
+    masks = (rng.random((n, h // 8, w // 8)) < 0.2).astype(np.int8)
+    masks[-2:] = 0
+    masks[-1, 1, 1] = masks[-2, 1, 2] = 1
+    mask = torch.from_numpy(masks)
+    holed = torch.where(upsample_map(mask.bool(), 8)[..., None], 0, clip).to(torch.uint8)
+    field = torch.zeros((n, h // 8, w // 8, 2))
+    field[1:, ..., 1] = -float(pan)
+    return holed, mask, field
+
+
+def _hinted_fill(f, m, mv):
+    from elvis_tpu_torch.restore.inpaint import restore_removal_temporal
+
+    return restore_removal_temporal(f, m, 8, window=1, motion_radius=2, motion_field=mv)
+
+
+@pytest.mark.parametrize("k,n", [(2, 8), (4, 8), (2, 7)])
+def test_temporal_fill_with_the_motion_hint_sharded_equals_unsharded(k, n, logical):
+    """The motion field is per pair: past the clip's end, where the halo
+    repeats the last frame, it is zero motion (``zero_edge``), so the fill
+    with the hint through ``temporal_map_overlap`` (overlap 2 = 2 * window)
+    equals the whole-clip fill bit for bit; through ``_DataParallel``
+    too, whose padding of 7 frames to 8 adds one zero-motion frame."""
+    from elvis_tpu_torch.pipeline.run import _DataParallel
+
+    holed, mask, field = _hinted_pan(n)
+    whole = _hinted_fill(holed, mask, field)
+    logical(k)
+    if n % k == 0:
+        got = temporal_map_overlap(_hinted_fill, (holed, mask, field),
+                                   make_mesh(device_type="cpu"), overlap=2,
+                                   zero_edge=(False, False, True))
+        assert torch.equal(got, whole)
+    dp = _DataParallel(True, device_type="cpu")
+    got = dp.apply_temporal(_hinted_fill, (holed, mask, field), overlap=2,
+                            pairwise=(False, False, True))
+    assert torch.equal(got, whole)
+
+
+@pytest.fixture(scope="module")
+def jax_hinted_fills():
+    """JAX's fill with the hint over 2 shards of its CPU mesh and whole."""
+    from elvis_tpu.restore.inpaint import restore_removal_temporal as jfill
+
+    holed, mask, field = (x.numpy() for x in _hinted_pan(8))
+
+    def fn(f, m, mv):
+        return jfill(f, m, 8, window=1, motion_radius=2, motion_field=mv)
+
+    args = tuple(jnp.asarray(x) for x in (holed, mask, field))
+    mesh = jmake_mesh(devices=[0, 1])
+    sharded = np.asarray(jax.jit(lambda *a: jtemporal(fn, a, mesh, 2))(*args))
+    return sharded, np.asarray(jax.jit(fn)(*args))
+
+
+def test_motion_hint_halo_diverges_from_jax_sharded_on_the_last_frame(jax_hinted_fills, logical):
+    """An intended divergence: JAX's halo replicates the last pair's motion
+    between copies of the last frame, so its sharded fill with the hint
+    differs from its whole-clip fill on the last frame (64 LSB on this
+    pan), and only there. The port's sharded fill equals JAX's
+    WHOLE-clip fill (the fill's own tolerance: known pixels bit-equal, hole
+    pixels within 1 LSB on at most 0.1%, tests/test_torch_inpaint_temporal.py)."""
+    jsharded, jwhole = jax_hinted_fills
+    holed, mask, field = _hinted_pan(8)
+    logical(2)
+    got = temporal_map_overlap(_hinted_fill, (holed, mask, field), make_mesh(device_type="cpu"),
+                               overlap=2, zero_edge=(False, False, True)).numpy()
+    hole = np.repeat(np.repeat(mask.numpy().astype(bool), 8, 1), 8, 2)
+    assert np.array_equal(got[~hole], jwhole[~hole])
+    d = np.abs(got[hole].astype(int) - jwhole[hole].astype(int))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+    by_frame = np.abs(got.astype(int) - jsharded.astype(int)).max(axis=(1, 2, 3))
+    assert by_frame[:-1].max() <= 1 and by_frame[-1] >= 20, by_frame
+
+
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
 @pytest.mark.parametrize("tile,halo", [(8, 2), (16, 4)])
 def test_tile_helpers_equal_jax(dtype, tile, halo):

@@ -110,8 +110,8 @@ def _away_from_default(name):
     return [0] if name.endswith("_devices") else ("w.npz" if name.endswith("_path") else 3)
 
 
-# fields that were pending and are ported now: ROADMAP.md §1 items 4 and 7
-PORTED_FIELDS = {"encode_preset": 4, "encode_pix_fmt": 4,
+# fields that were pending and are ported now: ROADMAP.md §1 items 4, 7 and 8
+PORTED_FIELDS = {"encode_preset": 4, "encode_pix_fmt": 4, "minimal_figures": 8,
                  **{name: 7 for name in ("propainter_devices", "e2fgvi_devices",
                                          "realesrgan_devices", "instantir_devices",
                                          "spatial_devices", "spatial_tile_threshold",
@@ -124,7 +124,9 @@ def test_pending_field_raises_before_stage_zero(name, tmp_path):
     its item. A field ported since passes ``check_ported``: the external
     encoders' preset and pixel format reach the codec as in JAX; the item-7
     device fields and the spatial axis configure the stage mesh (one card:
-    no mesh, tests/test_torch_parallel.py covers the logical meshes)."""
+    no mesh, tests/test_torch_parallel.py covers the logical meshes);
+    ``minimal_figures`` (item 8) is read by the search drivers
+    (tests/test_torch_search.py), and no field is pending any more."""
     from elvis_tpu_torch.pipeline import run_elvis
 
     exp = tmp_path / "exp"
@@ -135,6 +137,10 @@ def test_pending_field_raises_before_stage_zero(name, tmp_path):
         assert name not in tcfg.PENDING_FIELDS
         assert PORTED_FIELDS[name] not in set(tcfg.PENDING_FIELDS.values())
         tcfg.check_ported(cfg)
+        if PORTED_FIELDS[name] == 8:
+            # the search drivers' figure roll-up reads it from the grid
+            assert tcfg.PENDING_FIELDS == {} and tcfg._ITEMS == {}
+            return
         if PORTED_FIELDS[name] == 7:
             from elvis_tpu_torch.pipeline.run import _DataParallel
 

@@ -413,14 +413,6 @@ def test_cli_flags_reach_the_trainers(monkeypatch):
     assert seen["deblur"][2] == dict(lr=1e-3, val_every=3, photo_fraction=0.0, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["diffusion", "inpaint", "perceptual", "saliency"])
-def test_unported_trainers_raise_naming_item_8(name, tmp_path):
-    from elvis_tpu_torch.train.cli import main
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
-        main([name, "--steps", "1", "--ckpt-dir", str(tmp_path)], device="cpu")
-
-
 def test_trainers_run_on_the_card_only(tmp_path, monkeypatch):
     from elvis_tpu_torch.train.cli import main
 
