@@ -227,14 +227,15 @@ def ptxas_summary(log):
             f"{len(spills)} with spills" + (f": {spills[:3]}" if spills else ""))
 
 
-def plain_frames(bt, frames, t, levels, b, amount=None):
+def plain_frames(bt, frames, t, levels, b, amount=None, transform=None):
     """The plain composition the frame layout replaces: cast, split into
-    blocks, transform (einsums), the unsharp combine, put together, round
-    and clip, cast back. ``t`` and ``amount`` are device tensors."""
+    blocks, transform (einsums; or ``transform(blocks, levels)``), the
+    unsharp combine, put together, round and clip, cast back. ``t`` and
+    ``amount`` are device tensors."""
     from elvis_tpu_torch.core.blocks import combine_blocks, split_into_blocks
 
     x = split_into_blocks(frames, b).float()
-    out = bt.apply_block_matrix(x, t, levels)
+    out = bt.apply_block_matrix(x, t, levels) if transform is None else transform(x, levels)
     if amount is not None:
         a = amount[levels.long()][..., None, None, None]
         out = torch.where(a > 0, torch.clamp((1.0 + a) * x - a * out, 0, 255), x)
@@ -244,10 +245,38 @@ def plain_frames(bt, frames, t, levels, b, amount=None):
     return out.to(frames.dtype)
 
 
+def bmm_route(t, x, idx):
+    """The batched kernel's library route: each block's T gathered
+    (a negative level wraps once, the rest is clamped), then two
+    ``torch.bmm`` in float32 without TF32, ``T X`` and ``(T X) T^T``.
+    Blocks ``(M, b, b, C)`` float32 -> a new ``(M, b, b, C)``."""
+    from elvis_tpu_torch.device import full_fp32
+
+    m, b, _, c = x.shape
+    ell = t.shape[0]
+    lv = idx.long()
+    tm = t[torch.where(lv < 0, lv + ell, lv).clamp(0, ell - 1)]  # (M, b, b)
+    with full_fp32():
+        y = torch.bmm(tm, x.reshape(m, b, b * c))  # T X
+        y = y.view(m, b, b, c).permute(0, 3, 1, 2).reshape(m, c * b, b)  # rows (c, i)
+        z = torch.bmm(y, tm.transpose(1, 2))  # (T X) T^T
+    return z.view(m, c, b, b).permute(0, 2, 3, 1).contiguous()
+
+
+def held_u8(got, want):
+    """Two uint8 tensors apart: the largest distance in LSB, the pixels that
+    differ, and their share."""
+    diff = (got.int() - want.int()).abs()
+    err, differing = float(diff.max().item()), int((diff > 0).sum().item())
+    return err, differing, differing / diff.numel()
+
+
 def phase_frame_layout(bt, gen):
     """The transform kernel on frames: each row held to the plain
     composition and timed against the bound of the function in these
-    types. Returns the rows, the main path's (uint8, b=8, resample) first."""
+    types, beside its library route (the same composition around
+    ``apply_block_matrix_kron``: one cuBLAS product and a gather). Returns
+    the rows, the main path's (uint8, b=8, resample) first."""
     from elvis_tpu_torch.restore.unsharp import _unsharp_blur_table
 
     dev = torch.device("cuda")
@@ -280,40 +309,59 @@ def phase_frame_layout(bt, gen):
         def kernel():
             return bt.apply_table_to_frames_cuda(frames, t, levels, b, amount=amount)
 
+        def library():
+            return plain_frames(bt, frames, None, levels, b, amount,
+                                lambda x, lv: bt.apply_block_matrix_kron(x, table, lv))
+
         got = kernel()
         torch.cuda.synchronize()
         want = plain_frames(bt, frames, t, levels, b, amount)
         check(got.dtype == dtype and got.shape == frames.shape, f"{label}: output type or shape")
+        lib = library()
+        check(lib.dtype == dtype and lib.shape == frames.shape,
+              f"{label}: library route's type or shape")
         if dtype == u8:
-            diff = (got.int() - want.int()).abs()
-            err, differing = float(diff.max().item()), int((diff > 0).sum().item())
-            share = differing / diff.numel()
+            err, differing, share = held_u8(got, want)
             check(err <= 1 and share <= U8_SHARE_TOL,
                   f"{label}: {err} LSB on {differing} pixels ({share:.2e}) vs the plain version")
-            held = f"max {err:.0f} LSB on {differing} of {diff.numel()} pixels (tol 1 LSB)"
-            del diff
+            held = f"max {err:.0f} LSB on {differing} of {want.numel()} pixels (tol 1 LSB)"
+            lib_err, lib_differing, lib_share = held_u8(lib, want)
+            check(lib_err <= 1 and lib_share <= U8_SHARE_TOL,
+                  f"{label}: the library route is {lib_err} LSB on {lib_differing} pixels "
+                  f"({lib_share:.2e}) from the plain version")
+            lib_held = f"max {lib_err:.0f} LSB on {lib_differing} pixels"
         else:
             err, differing = (got - want).abs().max().item(), None
             check(math.isfinite(err) and err <= KERNEL_TOL,
                   f"{label}: max |kernel - plain| = {err} > {KERNEL_TOL}")
             held = f"max_abs_err {err:.3g} (tol {KERNEL_TOL})"
+            lib_err = (lib - want).abs().max().item()
+            check(math.isfinite(lib_err) and lib_err <= KERNEL_TOL,
+                  f"{label}: max |library route - plain| = {lib_err} > {KERNEL_TOL}")
+            lib_held = f"max_abs_err {lib_err:.3g}"
+        del lib
         if epilogue:  # blocks with amount 0 come back bit-exact
             keep = (levels == 0).repeat_interleave(b, -1).repeat_interleave(b, -2)[..., None]
             check(torch.equal(torch.where(keep, got, 0), torch.where(keep, frames, 0)),
                   f"{label}: a level-0 block changed under the unsharp epilogue")
         del got, want
-        runs = [cuda_ms(kernel, iters=50) for _ in range(2)]
+        runs = {"kernel": [], "library": []}
+        for route in ("kernel", "library", "library", "kernel"):
+            runs[route].append(cuda_ms(kernel if route == "kernel" else library, iters=50))
         plain_ms = cuda_ms(lambda: plain_frames(bt, frames, t, levels, b, amount), iters=3,
                            warmup=1)
         size = frames.element_size()
         m = levels.numel()
         bound, by = block_transform_bound_ms(m, b, 3, ell, size, size)
-        ms = sum(runs) / len(runs)
+        ms, lib_ms = (sum(runs[r]) / len(runs[r]) for r in ("kernel", "library"))
         print(f"[kernel] block_transform {label} {N}x{hh}x{W}x3: {held}, kernel {ms:.4f} ms "
-              f"({', '.join(f'{r:.4f}' for r in runs)}), plain composition {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
+              f"({', '.join(f'{r:.4f}' for r in runs['kernel'])}), library route "
+              f"(apply_block_matrix_kron composition; {lib_held}) {lib_ms:.4f} ms "
+              f"({', '.join(f'{r:.4f}' for r in runs['library'])}), plain composition "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
         results.append({"label": label, "max_abs_err": err, "uint8_pixels_differing": differing,
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by})
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                        "library_ms": lib_ms, "library_max_abs_err": lib_err})
         del frames, levels
 
     # levels outside [0, L) in frame layout: wrap once, then clamp
@@ -372,6 +420,13 @@ def phase_kernels():
         ("b16_L5_resample_linear_C1", 16, bt.resample_matrix_table(16, "linear"), m16, 1,
          ("block_transform_batched",)),
     ]
+    # each kernel's library route, in the kernels' (M, b, b, C) layout: the
+    # dense product over every level and a gather (the JAX package's
+    # apply_block_matrix_kron), or T gathered per block and two batched
+    # products
+    routes = {"block_transform":
+              lambda table, t, x, i: bt.apply_block_matrix_kron(x, table, i).contiguous(),
+              "block_transform_batched": lambda table, t, x, i: bmm_route(t, x, i)}
     results = {name: [] for name in KERNELS}
     for label, b, table, m, c, names in shapes:
         ell = table.shape[0]
@@ -379,34 +434,50 @@ def phase_kernels():
         idx = torch.randint(0, ell, (m,), generator=gen, device=dev, dtype=torch.int32)
         t = torch.as_tensor(table, dtype=torch.float32, device=dev)
         want = bt.apply_block_matrix(x, t, idx)
-        got, errs = {}, {}
+        got, errs, lib_errs = {}, {}, {}
         for name in names:
             got[name] = fns[name](x, t, idx)
             torch.cuda.synchronize()
             errs[name] = (got[name] - want).abs().max().item()
             check(math.isfinite(errs[name]) and errs[name] <= KERNEL_TOL,
                   f"{name} {label}: max |kernel - plain| = {errs[name]} > {KERNEL_TOL}")
+            lib = routes[name](table, t, x, idx)
+            check(lib.shape == want.shape and lib.dtype == torch.float32,
+                  f"{name} {label}: library route's type or shape")
+            lib_errs[name] = (lib - want).abs().max().item()
+            check(math.isfinite(lib_errs[name]) and lib_errs[name] <= KERNEL_TOL,
+                  f"{name} {label}: max |library route - plain| = {lib_errs[name]} > "
+                  f"{KERNEL_TOL}")
+            del lib
         if len(names) == 2:
             cross = (got[names[0]] - got[names[1]]).abs().max().item()
             check(cross <= KERNEL_TOL, f"{label}: the two kernels differ by {cross}")
             print(f"[kernel] {label}: max |block_transform - block_transform_batched| = "
                   f"{cross:.3g} (tol {KERNEL_TOL})")
         del got, want
-        # the kernels in turns (a, b, b, a), 50 launches each time
-        order = list(names) + list(reversed(names))
-        runs = {name: [] for name in names}
-        for name in order:
-            runs[name].append(cuda_ms(lambda: fns[name](x, t, idx), iters=50))
+        # the kernels and their library routes in turns (a, b, b, a), 50
+        # launches each time
+        calls = {name: (lambda name=name: fns[name](x, t, idx)) for name in names}
+        calls.update({f"{name} library": (lambda name=name: routes[name](table, t, x, idx))
+                      for name in names})
+        order = list(calls) + list(reversed(calls))
+        runs = {key: [] for key in calls}
+        for key in order:
+            runs[key].append(cuda_ms(calls[key], iters=50))
         plain_ms = cuda_ms(lambda: bt.apply_block_matrix(x, t, idx), iters=10)
         bound, by = block_transform_bound_ms(m, b, c, ell)
         for name in names:
-            ms = sum(runs[name]) / len(runs[name])
+            ms, lib_ms = (sum(runs[k]) / len(runs[k]) for k in (name, f"{name} library"))
             print(f"[kernel] {name} {label} M={m} C={c}: max_abs_err {errs[name]:.3g} "
                   f"(tol {KERNEL_TOL}), kernel {ms:.4f} ms "
-                  f"({', '.join(f'{r:.4f}' for r in runs[name])}), plain {plain_ms:.4f} ms, "
-                  f"bound {bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
+                  f"({', '.join(f'{r:.4f}' for r in runs[name])}), library route "
+                  f"({'apply_block_matrix_kron' if name == 'block_transform' else 'gather + 2 bmm'}"
+                  f"; max_abs_err {lib_errs[name]:.3g}) {lib_ms:.4f} ms "
+                  f"({', '.join(f'{r:.4f}' for r in runs[f'{name} library'])}), plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
             results[name].append({"label": label, "max_abs_err": errs[name], "ms": ms,
-                                  "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by})
+                                  "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                                  "library_ms": lib_ms, "library_max_abs_err": lib_errs[name]})
         del x, idx
 
     # levels outside [0, L): a negative level wraps once, the rest is clamped
@@ -1316,6 +1387,24 @@ TRAIN_STEPS = 100
 TRAIN_LR = 1e-3
 TRAIN_EXTRA_STEPS = 5  # deblur and srnet_4k
 STEP_LR = 1e-4  # the sharded and card-vs-CPU step checks: constant learning rate
+# the card-vs-CPU bf16 steps: a tensor fails when more of its elements than
+# the larger of BF16_LEAST and BF16_SHARE of them moved apart by more than a
+# quarter of the summed learning rate
+BF16_LEAST = 2
+BF16_SHARE = 0.05
+
+
+def tensors_moved_apart(got, want, limit):
+    """Two parameter dicts: per tensor, the elements farther apart than
+    ``limit``, and the names of the tensors where more are than the larger
+    of ``BF16_LEAST`` and ``BF16_SHARE`` of the tensor's elements. A share
+    alone cannot be resolved on a small tensor (one element of a 12-element
+    bias is 8%): the floor of two elements lets a near-zero gradient or two
+    round apart, not a tensor that moved wrongly."""
+    beyond = {n: int(((got[n] - want[n]).abs() > limit).sum()) for n in want}
+    failing = sorted(n for n, c in beyond.items()
+                     if c > max(BF16_LEAST, BF16_SHARE * want[n].numel()))
+    return beyond, failing
 
 
 def _rows(results):
@@ -2301,6 +2390,25 @@ def phase_parallel(smi_line, shrunk_stream, removal, default_run):
     return launches
 
 
+def nondeterministic_ops(fn):
+    """Run ``fn`` once under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` and return the distinct warnings torch gives for the
+    ops it has no deterministic version of (the setting is put back)."""
+    import warnings
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(prev)
+    return sorted({str(w.message).splitlines()[0] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
 def phase_train(smi_line):
     """The trainers on the card: ``train_srnet_student`` at the shipped
     architecture with the three teachers, its checkpoint through the SR
@@ -2313,7 +2421,7 @@ def phase_train(smi_line):
     from elvis_tpu_torch.device import full_fp32
     from elvis_tpu_torch.kernels import LAUNCHES
     from elvis_tpu_torch.models import SRNetCompact
-    from elvis_tpu_torch.models.io import load_deblur
+    from elvis_tpu_torch.models.io import load_deblur, load_srnet, weights_path
     from elvis_tpu_torch.models.srnet import srnet_upsample_fn
     from elvis_tpu_torch.parallel import make_mesh
     from elvis_tpu_torch.pipeline import ElvisConfig
@@ -2407,9 +2515,9 @@ def phase_train(smi_line):
             clean, torch.rand((STUDENT["batch"], side, side), generator=gen, device=dev), B)
         batches.append((clean, deg, lv))
 
-    def sr_steps(mesh, dtype, batches_, device):
+    def sr_steps(mesh, dtype, batches_, device, state):
         model = SRNetCompact(STUDENT["features"], STUDENT["num_convs"], dtype=dtype)
-        model.load_state_dict(tr.model.state_dict())
+        model.load_state_dict(state)
         model.to(device)
 
         def loss_fn(p, data):
@@ -2421,9 +2529,10 @@ def phase_train(smi_line):
         step_losses = [float(t.step(tuple(x.to(device) for x in b))) for b in batches_]
         return t.params(torch.device("cpu")), step_losses
 
+    trained = tr.model.state_dict()
     start = {k: v.cpu() for k, v in tr.params().items()}
 
-    def apart(got, want):
+    def apart(got, want, start=start):
         """Adam moves a weight by up to the learning rate whatever its
         gradient's size, so a near-zero gradient's rounding (cuDNN picks its
         algorithms by batch) can move one weight apart: per tensor, the mean
@@ -2441,7 +2550,7 @@ def phase_train(smi_line):
     try:
         with full_fp32():
             one, one_losses = sr_steps(make_mesh(devices=[0], device_type="cuda"),
-                                       torch.float32, batches, dev)
+                                       torch.float32, batches, dev, trained)
             for label, k, axes in (("data 2", 2, (("data", 2),)),
                                    ("data 2 x tensor 2", 4, (("data", 2), ("tensor", 2)))):
                 undo = _logical_devices(k)
@@ -2449,41 +2558,62 @@ def phase_train(smi_line):
                     mesh = make_mesh(axes, device_type="cuda")
                 finally:
                     undo()
-                got, got_losses = sr_steps(mesh, torch.float32, batches, dev)
+                got, got_losses = sr_steps(mesh, torch.float32, batches, dev, trained)
                 shard_apart[label] = dict(apart(got, one), loss_rel_apart=max(
                     abs(a - b) / b for a, b in zip(got_losses, one_losses)))
             again, _ = sr_steps(make_mesh(devices=[0], device_type="cuda"), torch.float32,
-                                batches, dev)
-            shard_apart["one device again"] = apart(again, one)
+                                batches, dev, trained)
+            shard_apart["one device again"] = again_apart = apart(again, one)
+            repeats = again_apart["max_param_apart"] == 0 and again_apart["mean_over_move"] == 0
+            if not repeats:  # name the ops that torch knows to be nondeterministic
+                named = nondeterministic_ops(lambda: sr_steps(
+                    make_mesh(devices=[0], device_type="cuda"), torch.float32, batches, dev,
+                    trained))
+                print(f"[train] the unsharded float32 step does not repeat bit for bit; under "
+                      f"torch.use_deterministic_algorithms(True, warn_only=True) torch names: "
+                      f"{json.dumps(named)}")
     finally:
         cudnn.deterministic, cudnn.benchmark = prev_cudnn
     moved = max(float((one[n] - start[n]).abs().max()) for n in one)
     print(f"[train] two steps (lr {STEP_LR}) of the float32 student on logical meshes of the "
           f"card against one device, deterministic cuDNN: {json.dumps(shard_apart)}; the "
-          f"unsharded step moved the parameters by up to {moved:.3e} (bounds: mean distance 1% "
-          f"of the mean move, the largest a quarter of the summed learning rate, "
-          f"{0.25 * 2 * STEP_LR:.0e}; losses 1e-5 relative)")
+          f"unsharded step moved the parameters by up to {moved:.3e} (bounds: one device "
+          f"against itself bit-equal; mean distance 1% of the mean move, the largest a quarter "
+          f"of the summed learning rate, {0.25 * 2 * STEP_LR:.0e}; losses 1e-5 relative)")
+    check(repeats, f"the unsharded float32 step differs from itself: {again_apart}")
     check(all(v["mean_over_move"] <= 0.01 and v["max_param_apart"] <= 0.25 * 2 * STEP_LR
               and v.get("loss_rel_apart", 0.0) <= 1e-5 for v in shard_apart.values()),
           f"sharded steps differ: {shard_apart}")
 
-    # a step on the card against the same step on the CPU: the bf16 student
-    # on a 4 x 32 x 32 crop of the batches
+    # a step on the card against the same step on the CPU: the bf16 student,
+    # from the shipped weights (the same start in every run), on a 4 x 32 x
+    # 32 crop of the batches
+    shipped = load_srnet(weights_path("srnet_student"), device="cpu").state_dict()
     crop = [tuple(x[:4, : x.shape[1] // 2, : x.shape[2] // 2] for x in b) for b in batches]
     card, card_losses = sr_steps(make_mesh(devices=[0], device_type="cuda"), torch.bfloat16,
-                                 crop, dev)
+                                 crop, dev, shipped)
     cpu, cpu_losses = sr_steps(make_mesh(devices=[0], device_type="cpu"), torch.bfloat16,
-                               [tuple(x.cpu() for x in b) for b in crop], torch.device("cpu"))
-    card_cpu = apart(card, cpu)
-    beyond = {n: int(((card[n] - cpu[n]).abs() > 0.25 * 2 * STEP_LR).sum()) for n in cpu}
-    far = max(beyond[n] / cpu[n].numel() for n in cpu)
+                               [tuple(x.cpu() for x in b) for b in crop], torch.device("cpu"),
+                               shipped)
+    card_cpu = apart(card, cpu, shipped)
+    limit = 0.25 * 2 * STEP_LR
+    beyond, failing = tensors_moved_apart(card, cpu, limit)
+    # the negative control: the card's up.bias put back where it started
+    control = dict(card, **{"up.bias": shipped["up.bias"]})
+    control_beyond, control_failing = tensors_moved_apart(control, cpu, limit)
     loss_apart = max(abs(a - b) / b for a, b in zip(card_losses, cpu_losses))
-    print(f"[train] two bf16 steps on a crop, card against CPU: {json.dumps(card_cpu)}, share "
-          f"beyond a quarter of the summed learning rate {far:.4f} (per tensor; elements beyond "
-          f"of the tensor's: {json.dumps({n: [c, cpu[n].numel()] for n, c in beyond.items() if c})}"
-          f"), losses {loss_apart:.2e} relative apart (bounds: mean distance 15% of the mean "
-          "move, that share 5%, losses 1e-2: the bf16 trunks round differently)")
-    check(card_cpu["mean_over_move"] <= 0.15 and far <= 0.05 and loss_apart <= 1e-2,
+    print(f"[train] two bf16 steps on a crop from the shipped srnet_student, card against CPU: "
+          f"{json.dumps(card_cpu)}; elements beyond a quarter of the summed learning rate, of "
+          f"the tensor's: {json.dumps({n: [c, cpu[n].numel()] for n, c in beyond.items()})}, "
+          f"tensors failing {failing}; losses {loss_apart:.2e} relative apart (bounds: mean "
+          f"distance 15% of the mean move, per tensor at most the larger of {BF16_LEAST} "
+          f"elements and {BF16_SHARE:.0%} of them beyond, losses 1e-2: the bf16 trunks round "
+          f"differently); negative control (the card's up.bias at its start): "
+          f"{control_beyond['up.bias']} of {cpu['up.bias'].numel()} beyond, tensors failing "
+          f"{control_failing}")
+    check("up.bias" in control_failing,
+          f"the statistic passes the card's step with up.bias unmoved: {control_beyond}")
+    check(card_cpu["mean_over_move"] <= 0.15 and not failing and loss_apart <= 1e-2,
           "the card's step differs from the CPU's")
 
     # deblur at its defaults, and the 4K finisher
@@ -2779,7 +2909,7 @@ def main() -> int:
             "plain_ms": rows[0]["plain_ms"],
             "bound_ms": rows[0]["bound_ms"],
             "bound_by": rows[0]["bound_by"],
-            "library_ms": None,
+            "library_ms": rows[0]["library_ms"],
             "rows": rows,
         })
     print(json.dumps({"kernels": kernels}))

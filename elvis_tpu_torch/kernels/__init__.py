@@ -4,6 +4,7 @@ from elvis_tpu_torch.kernels.block_transform import (
     apply_block_matrix_batched_cuda,
     apply_block_matrix_cuda,
     apply_block_matrix_fast,
+    apply_block_matrix_kron,
     apply_table_to_frames,
     apply_table_to_frames_cuda,
     blur_matrix_table,
@@ -17,6 +18,7 @@ __all__ = [
     "apply_block_matrix_batched_cuda",
     "apply_block_matrix_cuda",
     "apply_block_matrix_fast",
+    "apply_block_matrix_kron",
     "apply_table_to_frames",
     "apply_table_to_frames_cuda",
     "blur_matrix_table",

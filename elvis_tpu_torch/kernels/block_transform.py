@@ -9,6 +9,11 @@ for the adaptive downsample, ``B^r`` for r within-block blur rounds.
     ``resample_matrix_table`` — the host tables (numpy, float64);
   * ``apply_block_matrix`` — the plain PyTorch version (gather + two
     einsums). The CPU path, and the comparison target on the card;
+  * ``apply_block_matrix_kron`` — the JAX package's dense route, also
+    plain PyTorch: ``vec(T X T^T) = vec(X) @ (T (x) T)^T``, every level in
+    one ``(M*C, b^2) @ (b^2, L*b^2)`` product (cuBLAS on a card), then a
+    gather of each block's level. Nothing in the package calls it;
+    ``chip_smoke.py`` times it beside the kernels as their library route;
   * ``apply_table_to_frames`` — what the degrade and restore functions
     call: frames in, frames out, in the frames' own type. On CUDA tensors
     it is one launch of the hand-written CUDA kernel
@@ -44,6 +49,11 @@ what is still outside ``[0, L)`` is clamped.
 
 ``LAUNCHES["block_transform"]`` and ``LAUNCHES["block_transform_batched"]``
 count the kernels' launches.
+
+The JAX module's two Pallas kernels have no function of their name here
+(``elvis_tpu_torch.counterparts`` records it): ``apply_block_matrix_pallas_kron``
+is ``apply_block_matrix_cuda`` / ``apply_table_to_frames_cuda``, and
+``apply_block_matrix_pallas`` is ``apply_block_matrix_batched_cuda``.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ __all__ = [
     "blur_matrix_table",
     "resample_matrix_table",
     "apply_block_matrix",
+    "apply_block_matrix_kron",
     "apply_block_matrix_cuda",
     "apply_block_matrix_batched_cuda",
     "apply_block_matrix_fast",
@@ -136,6 +147,39 @@ def apply_block_matrix(blocks: torch.Tensor, table: torch.Tensor,
     with full_fp32():
         y = torch.einsum("...ij,...jkc->...ikc", t, x)
         return torch.einsum("...lk,...ikc->...ilc", t, y)
+
+
+def _kron_of(table: np.ndarray) -> np.ndarray:
+    """(L, b, b) -> (b*b, L*b*b): column-stacked T_l (x) T_l, so that
+    ``vec(T X T^T) = vec(X) @ (T (x) T)^T`` lands level l's result in
+    columns [l*b*b, (l+1)*b*b)."""
+    ell = table.shape[0]
+    ks = [np.kron(table[lvl], table[lvl]).T for lvl in range(ell)]  # (b2, b2) each
+    return np.concatenate(ks, axis=1).astype(np.float32)  # (b2, L*b2)
+
+
+def apply_block_matrix_kron(blocks: torch.Tensor, table, idx: torch.Tensor) -> torch.Tensor:
+    """The dense route of ``apply_block_matrix``: blocks ``(..., b, b, C)``,
+    a host-side ``(L, b, b)`` table, idx ``(...,)`` int -> ``T[idx] @ X @
+    T[idx].T`` per block, ``(..., b, b, C)`` float32. Channels fold into
+    rows, ``(M*C, b^2)``; one float32 product (no TF32) against the
+    ``(b^2, L*b^2)`` stack of every level's ``T_l (x) T_l`` gives all
+    levels, and each block keeps its own level's ``b^2`` columns. L times
+    the operations of the transform and an ``(M*C, L*b^2)`` intermediate
+    in memory. A negative level wraps once, the rest is clamped."""
+    b, c = blocks.shape[-3], blocks.shape[-1]
+    lead = blocks.shape[:-3]
+    ell = np.shape(table)[0]
+    k = device_table(table, blocks.device, kron=True)  # (b2, L*b2)
+    m = math.prod(lead)
+    n = len(lead)
+    xv = blocks.float().permute(*range(n), n + 2, n, n + 1).reshape(m * c, b * b)
+    with full_fp32():
+        y = torch.matmul(xv, k).view(m, c, ell, b * b)
+    lv = idx.reshape(m).long()
+    lv = torch.where(lv < 0, lv + ell, lv).clamp(0, ell - 1)
+    sel = torch.gather(y, 2, lv.view(m, 1, 1, 1).expand(m, c, 1, b * b))
+    return sel.view(*lead, c, b, b).permute(*range(n), n + 1, n + 2, n)
 
 
 _MAX_LEVELS = 16
@@ -403,18 +447,21 @@ _DEVICE_TABLES: "dict[tuple, torch.Tensor]" = {}
 TABLE_UPLOADS: "collections.Counter[str]" = collections.Counter()
 
 
-def device_table(table, device, *, transpose: bool = False) -> torch.Tensor:
+def device_table(table, device, *, transpose: bool = False, kron: bool = False) -> torch.Tensor:
     """The float32 tensor of a host table on ``device`` (with its last two
-    axes swapped if ``transpose``), made on first use and kept."""
+    axes swapped if ``transpose``; as its ``(b^2, L*b^2)`` stack of
+    ``T_l (x) T_l`` if ``kron``), made on first use and kept."""
     host = np.ascontiguousarray(np.asarray(table, np.float64))
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = (host.shape, host.tobytes(), str(device), transpose)
+    key = (host.shape, host.tobytes(), str(device), transpose, kron)
     hit = _DEVICE_TABLES.get(key)
     if hit is None:
         if transpose:
             host = np.ascontiguousarray(np.swapaxes(host, -1, -2))
+        if kron:
+            host = _kron_of(host)
         hit = torch.as_tensor(host, dtype=torch.float32).to(device)
         if len(_DEVICE_TABLES) >= 256:
             _DEVICE_TABLES.clear()

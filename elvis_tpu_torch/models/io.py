@@ -15,6 +15,14 @@ kernels -> OIHW, dense kernels transposed) and ``write_npz`` writes a
 state_dict back in that format (the trainers' checkpoints); ``load_srnet``,
 ``load_deblur``, ``load_inpaint``, ``load_saliency`` and ``load_diffusion``
 build the models.
+
+The JAX module's generic names work on a module the caller built:
+``init_params`` (its fresh state, drawn from an explicit generator),
+``load_params`` / ``maybe_load_params`` (a weights file into it, or its
+fresh state when there is no file), ``host_params`` (numpy arrays) and
+``default_checkpoint_dir`` (the weights directory). They read ``.npz``
+weights files where the JAX package reads orbax directories: the card's
+machine has no orbax.
 """
 
 from __future__ import annotations
@@ -34,6 +42,11 @@ from elvis_tpu_torch.models.saliency_net import SaliencyNet
 from elvis_tpu_torch.models.srnet import SRNet, SRNetCompact
 
 __all__ = [
+    "default_checkpoint_dir",
+    "host_params",
+    "init_params",
+    "load_params",
+    "maybe_load_params",
     "weights_dir",
     "weights_path",
     "params_from_flax",
@@ -60,6 +73,61 @@ def weights_path(name: str) -> Optional[str]:
     """``weights/<name>.npz`` when it exists, else None."""
     path = os.path.join(weights_dir(), f"{name}.npz")
     return path if os.path.isfile(path) else None
+
+
+def default_checkpoint_dir() -> str:
+    """Where the port's shipped weights live: ``weights_dir()``."""
+    return weights_dir()
+
+
+def host_params(params: "torch.nn.Module | Mapping") -> Dict[str, np.ndarray]:
+    """A module's state_dict, or a dict of tensors, as numpy arrays on the
+    host (numpy arrays pass through)."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    return {name: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for name, v in params.items()}
+
+
+_ZERO_HEADS = ("tail", "eps")  # the output convs the flax models initialise at zero
+
+
+def init_params(model: torch.nn.Module,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """``model``'s state as the flax models start: every kernel drawn LeCun
+    normal (std ``1/sqrt(fan_in)``) from ``generator`` (default
+    ``torch.Generator().manual_seed(0)``) in parameter order, every bias
+    and the output head (``tail``, ``eps``) zero, buffers as they are. The
+    module itself is left as it was. With the head at zero, an SR, deblur,
+    inpaint or diffusion net returns its classical base."""
+    gen = torch.Generator().manual_seed(0) if generator is None else generator
+    state = dict(model.state_dict())
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[-1] == "bias" or (len(parts) > 1 and parts[-2] in _ZERO_HEADS):
+            fresh = torch.zeros(p.shape)
+        else:
+            fresh = torch.randn(p.shape, generator=gen) / p[0].numel() ** 0.5
+        state[name] = fresh.to(dtype=p.dtype, device=p.device)
+    return state
+
+
+def load_params(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """``model`` with the weights of the port weights file ``path`` (read
+    by ``read_npz``; the layer names of ``params_from_flax``) loaded."""
+    tree, _ = read_npz(path)
+    model.load_state_dict(params_from_flax(tree))
+    return model
+
+
+def maybe_load_params(model: torch.nn.Module, path: Optional[str]) -> torch.nn.Module:
+    """``load_params`` when ``path`` is a file, else ``model`` with its
+    ``init_params`` state: a fresh SR or deblur net returns its classical
+    baseline (the zero head)."""
+    if path and os.path.isfile(path):
+        return load_params(model, path)
+    model.load_state_dict(init_params(model))
+    return model
 
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:

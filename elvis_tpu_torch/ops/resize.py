@@ -119,10 +119,41 @@ def _phase_weights_2x(method: str):
 _UP2X_PAD = 4  # covers lanczos4's reach (support 4); linear uses 1 of it
 
 
+class _EdgePad(torch.autograd.Function):
+    """``_UP2X_PAD`` copies of the edge row (or column) on each side of
+    ``axis``: the edge slices concatenated around ``x``, not a gather of
+    clamped indices. A gather's backward is ``index_add_``, which on a card
+    adds the repeated edge rows with atomics in whatever order they arrive;
+    this backward adds them in index order (the order ``index_add_`` takes
+    on the CPU), so a step repeats bit for bit and the CPU's gradients are
+    the gather's."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        n = x.shape[axis]
+        ctx.axis, ctx.n = axis, n
+        first, last = x.narrow(axis, 0, 1), x.narrow(axis, n - 1, 1)
+        return torch.cat([first] * _UP2X_PAD + [x] + [last] * _UP2X_PAD, dim=axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        axis, n, pad = ctx.axis, ctx.n, _UP2X_PAD
+        row = lambda k: grad.narrow(axis, k, 1)  # noqa: E731
+        out = grad.narrow(axis, pad, n).clone()
+        first = row(0)
+        for k in range(1, pad + 1):  # the left copies, then the edge row itself
+            first = first + row(k)
+        if n > 1:
+            out.narrow(axis, 0, 1).copy_(first)
+        last = first if n == 1 else row(pad + n - 1)
+        for k in range(pad + n, n + 2 * pad):  # the right copies
+            last = last + row(k)
+        out.narrow(axis, n - 1, 1).copy_(last)
+        return out, None
+
+
 def _edge_pad(x: torch.Tensor, axis: int) -> torch.Tensor:
-    n = x.shape[axis]
-    idx = torch.clamp(torch.arange(-_UP2X_PAD, n + _UP2X_PAD, device=x.device), 0, n - 1)
-    return torch.index_select(x, axis, idx)
+    return _EdgePad.apply(x, axis)
 
 
 def _taps(xp: torch.Tensor, axis: int, n: int, i0: int, wts) -> torch.Tensor:

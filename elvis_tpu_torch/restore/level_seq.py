@@ -20,6 +20,7 @@ import torch
 
 from elvis_tpu_torch.core.blocks import combine_blocks, split_into_blocks
 from elvis_tpu_torch.models.diffusion import DiffusionRestorer
+from elvis_tpu_torch.models.io import init_params
 from elvis_tpu_torch.ops.resize import resize
 from elvis_tpu_torch.restore.progressive import lanczos_upsample_2x
 from elvis_tpu_torch.restore.registry import register_restorer, safe_restore
@@ -59,19 +60,13 @@ def naive_sr_restore(frames: torch.Tensor, level_maps: torch.Tensor, block_size:
 
 
 def _untrained_restorer(device: torch.device) -> DiffusionRestorer:
-    """A DiffusionRestorer as initialized before training: conv and dense
-    kernels drawn (LeCun normal) from ``torch.Generator().manual_seed(0)``,
-    biases and the ``eps`` head zero. With the head zero every x0
-    prediction is the clipped conditioning, whatever the other weights."""
+    """A DiffusionRestorer as initialized before training
+    (``models.io.init_params``: conv and dense kernels drawn LeCun normal
+    from ``torch.Generator().manual_seed(0)``, biases and the ``eps`` head
+    zero). With the head zero every x0 prediction is the clipped
+    conditioning, whatever the other weights."""
     model = DiffusionRestorer(features=32)
-    gen = torch.Generator().manual_seed(0)
-    with torch.no_grad():
-        for name, p in model.unet.named_parameters():
-            if name.startswith("eps.") or name.endswith(".bias"):
-                p.zero_()
-            else:
-                fan_in = p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
+    model.unet.load_state_dict(init_params(model.unet))
     return model.to(device).eval().requires_grad_(False)
 
 

@@ -1,18 +1,30 @@
-"""Stage-boundary pixel type (port of ``elvis_tpu.utils.transfer``).
+"""Device-to-host copies and the stage-boundary pixel type (port of
+``elvis_tpu.utils.transfer``).
 
-:func:`as_pixels_u8` wraps a frame function so that its float pixel output
-leaves as uint8 (round half-to-even, clip to [0, 255] on the device): the
-domain every consumer works in anyway (codec input, metrics against a uint8
-reference, PNG artifacts). The JAX module's ``pull`` (device-to-host copies
-in slices sized for a TPU link) has no counterpart: the port's clip stays on
-the device and a stage that needs a host copy takes it in one ``.cpu()``.
+:func:`pull` copies a tensor to a numpy array of the same dtype and bits.
+The JAX module's ``pull`` cuts a large copy into slices of the first axis,
+because one large pull over its TPU link ran an order of magnitude slower;
+a card's copy over PCIe has no such penalty, so this one copies in one
+piece. :func:`as_pixels_u8` wraps a frame function so that its float pixel
+output leaves as uint8 (round half-to-even, clip to [0, 255] on the
+device): the domain every consumer works in anyway (codec input, metrics
+against a uint8 reference, PNG artifacts).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["as_pixels_u8"]
+__all__ = ["pull", "as_pixels_u8"]
+
+
+def pull(x) -> np.ndarray:
+    """``x`` (a tensor on any device, or a numpy array) as a numpy array of
+    its dtype and bits, in one copy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def as_pixels_u8(fn):

@@ -1,8 +1,9 @@
 """Card-only checks of the port (marker ``gpu``): its two CUDA kernels (the
 transform kernel in its block and frame layouts, and the batched kernel),
 the NVC codec, the fills and the pipeline on the card against the CPU, the
-halo functions and ``run_elvis`` on logical shards of the card, and the
-trainer's steps on the card against the CPU.
+halo functions and ``run_elvis`` on logical shards of the card, the
+trainer's steps on the card against the CPU and against themselves, and
+the dense library route of the transform against its kernel.
 
 They skip where no CUDA device is present. This file imports no JAX, so
 on a machine with a card and no JAX it runs without the repo's conftest:
@@ -48,6 +49,30 @@ def test_kernel_matches_plain(b, table_kind, m):
     assert bt.LAUNCHES["block_transform"] == before + 1
     want = bt.apply_block_matrix(blocks, t, idx)
     assert (got - want).abs().max().item() <= ATOL
+
+
+@pytest.mark.gpu
+def test_kron_route_on_card_matches_the_kernel():
+    """The dense route (``apply_block_matrix_kron``: one cuBLAS product over
+    every level, then a gather) against the transform kernel, b=8, levels
+    outside the table included; it launches no kernel of the port."""
+    from elvis_tpu_torch.kernels import block_transform as bt
+
+    dev = _cuda()
+    table = bt.resample_matrix_table(8, "linear")
+    ell = table.shape[0]
+    rng = np.random.default_rng(8)
+    blocks = torch.as_tensor((rng.random((3000, 8, 8, 3)) * 255).astype(np.float32), device=dev)
+    idx = rng.integers(0, ell, (3000,)).astype(np.int32)
+    idx[:4] = [-1, -ell - 1, ell, ell + 5]
+    idx = torch.as_tensor(idx, device=dev)
+    before = dict(bt.LAUNCHES)
+    got = bt.apply_block_matrix_kron(blocks, table, idx)
+    torch.cuda.synchronize()
+    assert dict(bt.LAUNCHES) == before
+    want = bt.apply_block_matrix_cuda(blocks, torch.as_tensor(table, dtype=torch.float32,
+                                                              device=dev), idx)
+    assert got.shape == blocks.shape and (got - want).abs().max().item() <= ATOL
 
 
 @pytest.mark.gpu
@@ -909,6 +934,61 @@ def test_train_steps_on_the_card_match_the_cpu():
         cpu, cpu_losses = run(torch.device("cpu"))
     np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-5)
     assert max(float((card[k] - cpu[k]).abs().max()) for k in cpu) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_float32_student_steps_repeat_bit_for_bit_on_the_card():
+    """Two AdamW steps of a float32 SRNetCompact through the SR loss under
+    deterministic cuDNN, twice from the same start on the same batches:
+    the same parameters and losses, bit for bit. The loss reaches the
+    edge pad of ``upsample2x_phases`` from the second stage on, whose
+    backward adds the edge copies in a fixed order."""
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.device import full_fp32
+    from elvis_tpu_torch.models import SRNetCompact
+    from elvis_tpu_torch.parallel import make_mesh
+    from elvis_tpu_torch.restore.progressive import progressive_restore
+    from elvis_tpu_torch.train import Trainer
+
+    dev = _cuda()
+    torch.manual_seed(0)
+    base = SRNetCompact(32, 2, dtype=torch.float32)
+    with torch.no_grad():
+        base.tail.weight.normal_(0, 0.05)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        clean = torch.from_numpy((rng.random((8, 64, 64, 3)) * 255).astype(np.float32)).to(dev)
+        deg, lv = adaptive_downsample(clean, torch.from_numpy(
+            rng.random((8, 8, 8)).astype(np.float32)).to(dev), 8)
+        batches.append((clean, deg, lv))
+
+    def run():
+        model = SRNetCompact(32, 2, dtype=torch.float32)
+        model.load_state_dict(base.state_dict())
+        model.to(dev)
+
+        def loss_fn(p, data):
+            up = lambda f: torch.func.functional_call(model, p, (f,))  # noqa: E731
+            out = progressive_restore(data[1], data[2], 8, upsample_fn=up, max_level=3)
+            return torch.mean((out - data[0]) ** 2) / 255.0**2
+
+        tr = Trainer(loss_fn, model, mesh=make_mesh(devices=[0], device_type="cuda"),
+                     learning_rate=1e-4, device=dev)
+        losses = [float(tr.step(b)) for b in batches]
+        return tr.params(torch.device("cpu")), losses
+
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with full_fp32():
+            first, first_losses = run()
+            again, again_losses = run()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+    assert first_losses == again_losses
+    assert all(torch.equal(first[k], again[k]) for k in first)
 
 
 @pytest.mark.gpu
