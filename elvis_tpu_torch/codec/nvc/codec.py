@@ -16,6 +16,15 @@ Two-pass bitrate targeting: pass 1 probes bits(QP), pass 2 encodes at QP
 shifted by the ~6 QP per bits-doubling law, with one refinement probe when
 the miss exceeds 15%. Clips of 48 frames and more fit the rate model on
 frame prefixes and pay one full encode.
+
+Under ``torch.profiler`` each ``encode`` records the spans ``nvc.encode``
+and, inside it, ``nvc.encode.planes`` (colour conversion and the plane
+encodes), ``nvc.encode.download`` and ``nvc.encode.pack`` (``write_stream``);
+each ``decode`` records ``nvc.decode`` with ``nvc.decode.unpack``
+(``read_stream``), ``nvc.decode.planes`` (uploads and plane decodes) and
+``nvc.decode.rgb``. The ``nvc`` counters ``encode.frames`` and
+``encode.bytes`` add up every finished encode
+(``elvis_tpu_torch.utils.trace``).
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from elvis_tpu_torch.codec.nvc.transform import (
 from elvis_tpu_torch.device import resolve_device
 from elvis_tpu_torch.ops.color import rgb_to_yuv420, yuv420_to_rgb
 from elvis_tpu_torch.ops.resize import resize
+from elvis_tpu_torch.utils.trace import counter, span
 
 __all__ = ["NvcCodec", "NvcStream", "encode", "decode", "luma_modes", "section_backends",
            "write_stream", "read_stream"]
@@ -133,7 +143,8 @@ def _carry(recon: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def _to_host(planes):
     """Device planes ``[(levels, modes, mvs)] * 3`` -> numpy, one download
     per array."""
-    return [tuple(a.cpu().numpy() for a in plane) for plane in planes]
+    with span("nvc.encode.download"):
+        return [tuple(a.cpu().numpy() for a in plane) for plane in planes]
 
 
 def _encode_planes(rgb, qp_y, qp_c, gop, me_radius, me_step, me_halfpel,
@@ -145,27 +156,28 @@ def _encode_planes(rgb, qp_y, qp_c, gop, me_radius, me_step, me_halfpel,
     reconstructions (Y, Cb, Cr). ``frame_offset`` (the segment's first
     frame) and ``init`` (per-plane reference carries) are the chunked
     path's; not with ``b_frames``."""
-    y, cb, cr = rgb_to_yuv420(rgb.float())
-    kw = dict(me_radius=me_radius, me_step=me_step, me_halfpel=me_halfpel,
-              multi_ref=multi_ref, deblock=deblock, intra_pred=intra_pred)
-    if b_frames:
-        enc = encode_plane_b
-        kw.update(gop=gop, b_qp_offset=b_qp_offset)
-    else:
-        enc = encode_plane
-        kw.update(gop=gop, frame_offset=frame_offset)
-    # chroma at half resolution: half the search radius
-    ckw = dict(kw, me_radius=max(me_radius // 2, 0))
-    init = init or (None, None, None)
-    planes, recons = [], []
-    for plane, qp, k, carry in ((y, qp_y, kw, init[0]), (cb, qp_c, ckw, init[1]),
-                                (cr, qp_c, ckw, init[2])):
-        if carry is not None:
-            k = dict(k, init_recon=carry)
-        lv, md, mv, rec = enc(plane, qp, **k)
-        planes.append((lv, md, mv))
-        recons.append(rec)
-    return planes, recons
+    with span("nvc.encode.planes"):
+        y, cb, cr = rgb_to_yuv420(rgb.float())
+        kw = dict(me_radius=me_radius, me_step=me_step, me_halfpel=me_halfpel,
+                  multi_ref=multi_ref, deblock=deblock, intra_pred=intra_pred)
+        if b_frames:
+            enc = encode_plane_b
+            kw.update(gop=gop, b_qp_offset=b_qp_offset)
+        else:
+            enc = encode_plane
+            kw.update(gop=gop, frame_offset=frame_offset)
+        # chroma at half resolution: half the search radius
+        ckw = dict(kw, me_radius=max(me_radius // 2, 0))
+        init = init or (None, None, None)
+        planes, recons = [], []
+        for plane, qp, k, carry in ((y, qp_y, kw, init[0]), (cb, qp_c, ckw, init[1]),
+                                    (cr, qp_c, ckw, init[2])):
+            if carry is not None:
+                k = dict(k, init_recon=carry)
+            lv, md, mv, rec = enc(plane, qp, **k)
+            planes.append((lv, md, mv))
+            recons.append(rec)
+        return planes, recons
 
 
 def _encode_planes_chunked(padded, qp_y, qp_c, gop, me_radius, me_step, me_halfpel,
@@ -351,33 +363,39 @@ def encode(
         # the header stores (1 + b_qp_offset) in one byte; -1 would encode
         # as 0 = "P-only" and mis-parse the mv sections
         raise ValueError(f"b_qp_offset must be in [0, 254], got {b_qp_offset}")
-    dev = _encode_device(frames, device)
-    n, orig_h, orig_w, _ = frames.shape
-    h, w = orig_h + (-orig_h) % _PAD, orig_w + (-orig_w) % _PAD
-    by, bx = h // BLOCK, w // BLOCK
-    qp_y = _qp_maps(n, by, bx, qp, roi_delta_qp)
-    qp_c = _chroma_qp(qp_y)
+    with span("nvc.encode"):
+        dev = _encode_device(frames, device)
+        n, orig_h, orig_w, _ = frames.shape
+        h, w = orig_h + (-orig_h) % _PAD, orig_w + (-orig_w) % _PAD
+        by, bx = h // BLOCK, w // BLOCK
+        qp_y = _qp_maps(n, by, bx, qp, roi_delta_qp)
+        qp_c = _chroma_qp(qp_y)
 
-    chunk = _chunk_frames_for(n, h, w, chunk_frames)
-    padded = _pad_to(torch.as_tensor(frames), _PAD)  # where the frames lie
-    if not b_frames and n > chunk:
-        planes = _encode_planes_chunked(
-            padded, qp_y, qp_c, int(gop), me_radius, me_step, me_halfpel, bool(multi_ref),
-            chunk, bool(deblock), bool(intra_pred), device=dev,
-        )
-    else:
-        planes, _ = _encode_planes(
-            padded.to(dev),
-            torch.as_tensor(qp_y, device=dev), torch.as_tensor(qp_c, device=dev),
-            int(gop), me_radius, me_step, me_halfpel, bool(b_frames), int(b_qp_offset),
-            bool(multi_ref), bool(deblock), bool(intra_pred),
-        )
-        planes = _to_host(planes)
-    return write_stream(
-        planes, width=orig_w, height=orig_h, qp=qp, framerate=framerate, gop=gop,
-        qp_y=qp_y if roi_delta_qp is not None else None, deblock=deblock,
-        b_frames=b_frames, b_qp_offset=b_qp_offset,
-    )
+        chunk = _chunk_frames_for(n, h, w, chunk_frames)
+        padded = _pad_to(torch.as_tensor(frames), _PAD)  # where the frames lie
+        if not b_frames and n > chunk:
+            planes = _encode_planes_chunked(
+                padded, qp_y, qp_c, int(gop), me_radius, me_step, me_halfpel, bool(multi_ref),
+                chunk, bool(deblock), bool(intra_pred), device=dev,
+            )
+        else:
+            planes, _ = _encode_planes(
+                padded.to(dev),
+                torch.as_tensor(qp_y, device=dev), torch.as_tensor(qp_c, device=dev),
+                int(gop), me_radius, me_step, me_halfpel, bool(b_frames), int(b_qp_offset),
+                bool(multi_ref), bool(deblock), bool(intra_pred),
+            )
+            planes = _to_host(planes)
+        with span("nvc.encode.pack"):
+            stream = write_stream(
+                planes, width=orig_w, height=orig_h, qp=qp, framerate=framerate, gop=gop,
+                qp_y=qp_y if roi_delta_qp is not None else None, deblock=deblock,
+                b_frames=b_frames, b_qp_offset=b_qp_offset,
+            )
+    counts = counter("nvc")
+    counts["encode.frames"] += n
+    counts["encode.bytes"] += len(stream)
+    return stream
 
 
 def _read_header(stream: bytes):
@@ -453,57 +471,61 @@ def _decode_planes(planes, qps, sizes, dev, *, bfr, deblock, init=None):
     reconstructions (Y, Cb, Cr) float32 on ``dev``. The per-frame and
     per-plane switches (reach, two references, spatial intra frames) are
     read from the host arrays before the upload."""
-    recons = []
-    for p, ((levels, modes, mvs), qp, (h, w)) in enumerate(zip(planes, qps, sizes)):
-        # mode 2 on the P chain => the stream used multi-reference P (on B
-        # streams odd-frame mode 2 is the backward reference, so only even
-        # frames are inspected)
-        p_modes = modes[::2] if bfr else modes
-        kw = dict(reach=_reach_of(mvs), multi_ref=bool((p_modes == 2).any()),
-                  deblock=deblock,
-                  spatial=(modes.reshape(modes.shape[0], -1) >= 4).any(axis=1).tolist())
-        args = [torch.as_tensor(a, device=dev) for a in (levels, modes, mvs, qp)]
-        if bfr:
-            recons.append(decode_plane_b(*args, h, w, b_qp_offset=bfr - 1, **kw))
-        else:
-            recons.append(decode_plane(*args, h, w,
-                                       init_recon=None if init is None else init[p], **kw))
-    return recons
+    with span("nvc.decode.planes"):
+        recons = []
+        for p, ((levels, modes, mvs), qp, (h, w)) in enumerate(zip(planes, qps, sizes)):
+            # mode 2 on the P chain => the stream used multi-reference P (on B
+            # streams odd-frame mode 2 is the backward reference, so only even
+            # frames are inspected)
+            p_modes = modes[::2] if bfr else modes
+            kw = dict(reach=_reach_of(mvs), multi_ref=bool((p_modes == 2).any()),
+                      deblock=deblock,
+                      spatial=(modes.reshape(modes.shape[0], -1) >= 4).any(axis=1).tolist())
+            args = [torch.as_tensor(a, device=dev) for a in (levels, modes, mvs, qp)]
+            if bfr:
+                recons.append(decode_plane_b(*args, h, w, b_qp_offset=bfr - 1, **kw))
+            else:
+                recons.append(decode_plane(*args, h, w,
+                                           init_recon=None if init is None else init[p], **kw))
+        return recons
 
 
 def decode(stream: bytes, device: Device = "cuda") -> Tuple[torch.Tensor, float]:
     """NVC bitstream -> (frames ``(N,H,W,3)`` uint8 RGB on ``device``,
     framerate)."""
-    dev = resolve_device(device)
-    header, qp_y, planes = read_stream(stream)
-    (_, _, orig_w, orig_h, n, fps, _, _, bfr, deblock, _) = header
-    h = orig_h + ((-orig_h) % _PAD)
-    w = orig_w + ((-orig_w) % _PAD)
-    qp_c = _chroma_qp(qp_y)
-    qps = (qp_y, qp_c, qp_c)
-    sizes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    with span("nvc.decode"):
+        dev = resolve_device(device)
+        with span("nvc.decode.unpack"):
+            header, qp_y, planes = read_stream(stream)
+        (_, _, orig_w, orig_h, n, fps, _, _, bfr, deblock, _) = header
+        h = orig_h + ((-orig_h) % _PAD)
+        w = orig_w + ((-orig_w) % _PAD)
+        qp_c = _chroma_qp(qp_y)
+        qps = (qp_y, qp_c, qp_c)
+        sizes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
 
-    def to_rgb(recons):
-        rgb = torch.clamp(torch.round(yuv420_to_rgb(*recons)), 0, 255).to(torch.uint8)
-        return rgb[:, :orig_h, :orig_w]
+        def to_rgb(recons):
+            with span("nvc.decode.rgb"):
+                rgb = torch.clamp(torch.round(yuv420_to_rgb(*recons)), 0, 255).to(torch.uint8)
+                return rgb[:, :orig_h, :orig_w]
 
-    chunk = _chunk_frames_for(n, h, w, None)
-    if bfr or n <= chunk:
-        return to_rgb(_decode_planes(planes, qps, sizes, dev, bfr=bfr,
-                                     deblock=deblock)).contiguous(), float(fps)
-    # bounded-memory decode: one loop per segment, reference carry across
-    # the boundary (mirrors the chunked encode). Each segment reads its own
-    # switches: a prediction is the same for every reach that covers its
-    # vector, and the two-reference path changes nothing without mode 2.
-    parts, init = [], None
-    for s in range(0, n, chunk):
-        e = min(s + chunk, n)
-        seg = [tuple(a[s:e] for a in plane) for plane in planes]
-        recons = _decode_planes(seg, [q[s:e] for q in qps], sizes, dev, bfr=0,
-                                deblock=deblock, init=init)
-        init = tuple(_carry(r) for r in recons)
-        parts.append(to_rgb(recons))
-    return torch.cat(parts), float(fps)
+        chunk = _chunk_frames_for(n, h, w, None)
+        if bfr or n <= chunk:
+            return to_rgb(_decode_planes(planes, qps, sizes, dev, bfr=bfr,
+                                         deblock=deblock)).contiguous(), float(fps)
+        # bounded-memory decode: one loop per segment, reference carry across
+        # the boundary (mirrors the chunked encode). Each segment reads its own
+        # switches: a prediction is the same for every reach that covers its
+        # vector, and the two-reference path changes nothing without mode 2.
+        parts, init = [], None
+        for s in range(0, n, chunk):
+            e = min(s + chunk, n)
+            seg = [tuple(a[s:e] for a in plane) for plane in planes]
+            recons = _decode_planes(seg, [q[s:e] for q in qps], sizes, dev, bfr=0,
+                                    deblock=deblock, init=init)
+            init = tuple(_carry(r) for r in recons)
+            parts.append(to_rgb(recons))
+        return torch.cat(parts), float(fps)
 
 
 def luma_modes(stream: bytes) -> np.ndarray:

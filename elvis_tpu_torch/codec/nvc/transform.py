@@ -20,6 +20,12 @@ another agree: Qstep comes from a table of 52 float32 values made once in
 float64 (``qstep_from_qp``), and the bit estimate ``ceil(log2(l + 1))`` of
 an integer level is taken from the float's exponent (``_level_bits``), which
 is exact everywhere.
+
+Under ``torch.profiler`` (``elvis_tpu_torch.utils.trace.span``) each frame of
+a plane records one span: ``nvc.encode.intra`` or ``nvc.encode.inter`` (with
+``nvc.encode.me`` around each motion search) in ``encode_plane``,
+``nvc.decode.intra`` (spatially predicted frames) or ``nvc.decode.inter``
+in ``decode_plane``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch.nn.functional as F
 
 from elvis_tpu_torch.device import full_fp32
 from elvis_tpu_torch.ops.dct import block_dct2, block_idct2
+from elvis_tpu_torch.utils.trace import span
 
 __all__ = [
     "qstep_from_qp",
@@ -527,15 +534,16 @@ def _search_mv(
     """Full ME pipeline against one reference: (coarse) search + integer
     refinement + optional half-pel, clamped to the reach's representable
     (and the container's int8) half-pel range."""
-    if factor == 1:
-        mv_int = _motion_search(recon_ref, blocks, me_radius, me_step)
-    else:
-        mv_int = _coarse_motion(recon_ref, _plane_of(blocks), me_radius, factor)
-        mv_int = _integer_refine(recon_ref, blocks, mv_int, reach=reach, rounds=rounds)
-    if me_halfpel:
-        mv = _halfpel_refine(recon_ref, blocks, mv_int, reach=reach)
-    else:
-        mv = mv_int * 2  # integer motion in half-pel units
+    with span("nvc.encode.me"):
+        if factor == 1:
+            mv_int = _motion_search(recon_ref, blocks, me_radius, me_step)
+        else:
+            mv_int = _coarse_motion(recon_ref, _plane_of(blocks), me_radius, factor)
+            mv_int = _integer_refine(recon_ref, blocks, mv_int, reach=reach, rounds=rounds)
+        if me_halfpel:
+            mv = _halfpel_refine(recon_ref, blocks, mv_int, reach=reach)
+        else:
+            mv = mv_int * 2  # integer motion in half-pel units
     # Stored vectors must stay inside THIS reach's representable range (and
     # the container's int8 half-pel range): the decoder sizes its tables
     # from the stream's max |mv| and predictions agree for every reach that
@@ -686,9 +694,11 @@ def encode_plane(
     out = []
     for t in range(n):
         if force_intra[t]:
-            frame = intra_frame(frames_blocks[t], qstep[t])
+            with span("nvc.encode.intra"):
+                frame = intra_frame(frames_blocks[t], qstep[t])
         else:
-            frame = inter_frame(recon_prev, recon_prev2, frames_blocks[t], qstep[t])
+            with span("nvc.encode.inter"):
+                frame = inter_frame(recon_prev, recon_prev2, frames_blocks[t], qstep[t])
         recon_prev, recon_prev2 = frame[3], recon_prev
         out.append(frame)
     levels, modes, mvs, recons = (torch.stack(parts) for parts in zip(*out))
@@ -735,22 +745,23 @@ def decode_plane(
     recons = []
     for t in range(n):
         lvl, mode, qs = lv[t], modes[t], qstep[t]
-        if spatial[t]:
-            recon = _plane_of(_intra_frame_decode(lvl, mode, qs))
-        else:
-            mv = mvs[t].int()
-            pred = _motion_predict(recon_prev, mv, reach=reach)
-            if multi_ref:
-                pred2 = _motion_predict(recon_prev2, mv, reach=reach)
-                pred = torch.where((mode == MODE_INTER_REF2)[..., None, None], pred2, pred)
-                is_inter = (mode == MODE_INTER) | (mode == MODE_INTER_REF2)
+        with span("nvc.decode.intra" if spatial[t] else "nvc.decode.inter"):
+            if spatial[t]:
+                recon = _plane_of(_intra_frame_decode(lvl, mode, qs))
             else:
-                is_inter = mode == MODE_INTER
-            rec_res = block_idct2(lvl * qs[..., None, None])
-            rec = torch.where(is_inter[..., None, None], rec_res + pred, rec_res)
-            recon = _plane_of(torch.clamp(rec, 0.0, 255.0))
-        if deblock:
-            recon = deblock_plane(recon, qs)
+                mv = mvs[t].int()
+                pred = _motion_predict(recon_prev, mv, reach=reach)
+                if multi_ref:
+                    pred2 = _motion_predict(recon_prev2, mv, reach=reach)
+                    pred = torch.where((mode == MODE_INTER_REF2)[..., None, None], pred2, pred)
+                    is_inter = (mode == MODE_INTER) | (mode == MODE_INTER_REF2)
+                else:
+                    is_inter = mode == MODE_INTER
+                rec_res = block_idct2(lvl * qs[..., None, None])
+                rec = torch.where(is_inter[..., None, None], rec_res + pred, rec_res)
+                recon = _plane_of(torch.clamp(rec, 0.0, 255.0))
+            if deblock:
+                recon = deblock_plane(recon, qs)
         recon_prev, recon_prev2 = recon, recon_prev
         recons.append(recon)
     return torch.stack(recons)

@@ -48,7 +48,9 @@ host does in the JAX package: a negative level wraps once (``l + L``), and
 what is still outside ``[0, L)`` is clamped.
 
 ``LAUNCHES["block_transform"]`` and ``LAUNCHES["block_transform_batched"]``
-count the kernels' launches.
+count the kernels' launches. ``LAUNCHES`` and ``TABLE_UPLOADS`` are the
+``launches`` and ``table_uploads`` families of the port's counter registry
+(``elvis_tpu_torch.utils.trace``).
 
 The JAX module's two Pallas kernels have no function of their name here
 (``elvis_tpu_torch.counterparts`` records it): ``apply_block_matrix_pallas_kron``
@@ -58,7 +60,6 @@ is ``apply_block_matrix_cuda`` / ``apply_table_to_frames_cuda``, and
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
@@ -70,6 +71,7 @@ from elvis_tpu_torch.core.blocks import combine_blocks, split_into_blocks
 from elvis_tpu_torch.device import full_fp32
 from elvis_tpu_torch.ops.filter import _reflect101_indices, gaussian_kernel_1d
 from elvis_tpu_torch.ops.resize import resize_matrix
+from elvis_tpu_torch.utils.trace import counter
 
 __all__ = [
     "LAUNCHES",
@@ -88,7 +90,7 @@ __all__ = [
 ]
 
 # Kernel launches by kernel name; each wrapper adds one where it launches.
-LAUNCHES: "collections.Counter[str]" = collections.Counter()
+LAUNCHES = counter("launches")
 
 
 @functools.lru_cache(maxsize=64)
@@ -444,7 +446,7 @@ def apply_block_matrix_batched_cuda(blocks: torch.Tensor, table: torch.Tensor,
 # float32 device copies of host tables, by content and device: a path
 # uploads each table once, not on every call
 _DEVICE_TABLES: "dict[tuple, torch.Tensor]" = {}
-TABLE_UPLOADS: "collections.Counter[str]" = collections.Counter()
+TABLE_UPLOADS = counter("table_uploads")
 
 
 def device_table(table, device, *, transpose: bool = False, kron: bool = False) -> torch.Tensor:

@@ -15,6 +15,7 @@ import torch
 from elvis_tpu_torch.core.blocks import split_into_blocks
 from elvis_tpu_torch.ops.color import rgb_to_gray
 from elvis_tpu_torch.ops.dct import block_dct2
+from elvis_tpu_torch.utils.trace import span
 
 __all__ = ["Complexity", "spatial_temporal_complexity", "texture_energy"]
 
@@ -42,9 +43,10 @@ def texture_energy(gray: torch.Tensor, block_size: int) -> torch.Tensor:
 
 
 def spatial_temporal_complexity(frames: torch.Tensor, block_size: int) -> Complexity:
-    """frames ``(N, H, W, C)`` RGB -> per-block SC/TC."""
-    gray = rgb_to_gray(frames.float())
-    sc = texture_energy(gray, block_size)
-    tc_tail = texture_energy(gray[1:] - gray[:-1], block_size)
-    tc = torch.cat([torch.zeros_like(sc[:1]), tc_tail], dim=0)
-    return Complexity(SC=sc, TC=tc)
+    """frames ``(N, H, W, C)`` RGB -> per-block SC/TC (span ``score.complexity``)."""
+    with span("score.complexity"):
+        gray = rgb_to_gray(frames.float())
+        sc = texture_energy(gray, block_size)
+        tc_tail = texture_energy(gray[1:] - gray[:-1], block_size)
+        tc = torch.cat([torch.zeros_like(sc[:1]), tc_tail], dim=0)
+        return Complexity(SC=sc, TC=tc)

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from elvis_tpu_torch.utils.trace import span
+
 __all__ = ["normalize01", "removability_scores", "importance_scores"]
 
 
@@ -39,17 +41,20 @@ def removability_scores(sc: torch.Tensor, tc: torch.Tensor, block_fg_mask: torch
                         alpha: float = 0.5, smoothing_beta: float = 0.5,
                         background_boost: float = 10.0) -> torch.Tensor:
     """``(N,By,Bx)`` SC/TC + boolean fg mask -> removability in [0,1]
-    (high = safe to degrade)."""
-    scores = _alpha_fuse(normalize01(sc), normalize01(tc), alpha)
-    scores = torch.where(block_fg_mask, scores, scores * background_boost)
-    scores = _beta_smooth(scores, smoothing_beta)
-    return normalize01(scores)
+    (high = safe to degrade). Span ``score.fusion``."""
+    with span("score.fusion"):
+        scores = _alpha_fuse(normalize01(sc), normalize01(tc), alpha)
+        scores = torch.where(block_fg_mask, scores, scores * background_boost)
+        scores = _beta_smooth(scores, smoothing_beta)
+        return normalize01(scores)
 
 
 def importance_scores(sc: torch.Tensor, tc: torch.Tensor, block_fg_weight: torch.Tensor,
                       alpha: float = 0.5, beta: float = 0.5) -> torch.Tensor:
     """PRESLEY importance (high = keep quality); ``block_fg_weight`` float
-    in [0,1], weights < 0.5 replaced by -1 before the per-frame normalize."""
-    scores = _beta_smooth(_alpha_fuse(sc, tc, alpha), beta)
-    fg = torch.where(block_fg_weight < 0.5, -1.0, block_fg_weight)
-    return normalize01(scores * fg, axis=(1, 2))
+    in [0,1], weights < 0.5 replaced by -1 before the per-frame normalize.
+    Span ``score.fusion``."""
+    with span("score.fusion"):
+        scores = _beta_smooth(_alpha_fuse(sc, tc, alpha), beta)
+        fg = torch.where(block_fg_weight < 0.5, -1.0, block_fg_weight)
+        return normalize01(scores * fg, axis=(1, 2))

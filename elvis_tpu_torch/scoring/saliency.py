@@ -3,7 +3,9 @@
 A saliency function maps ``frames (N, H, W, C)`` -> ``mask (N, H, W)``
 float in [0, 1] (>= 0.5 means foreground), registered by name: the
 heuristics ``center_prior`` and ``motion_contrast``, and ``neural``, the
-shipped SaliencyNet (``models.saliency_net``).
+shipped SaliencyNet (``models.saliency_net``). The function
+``get_saliency_fn`` returns records the span ``score.saliency`` under
+``torch.profiler``, whichever backend it is.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from elvis_tpu_torch.core.blocks import blockwise_reduce
 from elvis_tpu_torch.ops.color import rgb_to_gray
 from elvis_tpu_torch.ops.filter import gaussian_blur
+from elvis_tpu_torch.utils.trace import span
 
 __all__ = [
     "register_saliency",
@@ -33,7 +36,12 @@ _REGISTRY: Dict[str, SaliencyFn] = {}
 
 def register_saliency(name: str):
     def deco(fn: SaliencyFn) -> SaliencyFn:
-        _REGISTRY[name] = fn
+        @functools.wraps(fn)
+        def spanned(frames: torch.Tensor) -> torch.Tensor:
+            with span("score.saliency"):
+                return fn(frames)
+
+        _REGISTRY[name] = spanned
         return fn
 
     return deco

@@ -10,8 +10,9 @@
     noisy libraries.
 
 The wall clock of a restorer ends when its output is ready: the device the
-output lives on is synchronised first. For a per-kernel view, run a stage
-under ``torch.profiler``.
+output lives on is synchronised first. For a per-stage and per-kernel view,
+profile the call with ``torch.profiler``: the codec, scoring and restore
+stages record their spans there (``elvis_tpu_torch.utils.trace.span``).
 """
 
 from __future__ import annotations

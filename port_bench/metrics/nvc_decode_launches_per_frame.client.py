@@ -1,0 +1,11 @@
+"""Device kernels launched inside the program's ``nvc.decode`` spans in the
+traced segments, per frame decoded."""
+
+SPAN = "nvc.decode"
+
+
+def read(run):
+    if run.trace is None or not run.trace.frames or SPAN not in run.trace.spans:
+        return None
+    kernels = [op for op in run.trace.launched_within(SPAN) if op.cat == "kernel"]
+    return len(kernels) / run.trace.frames
