@@ -16,6 +16,15 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
      frames as they lie in memory (uint8 and float32, with and without the
      unsharp epilogue) against the plain composition of split, transform,
      combine, round and clip;
+  2b. the SR nets' conv epilogue kernel (``csrc/conv_epilogue.cu``; no TPU
+     kernel) at the nets' trunk conv outputs on 8 x 540 x 960: the
+     student's convs (256 channels bf16: bias and leaky ReLU) and its ``up``
+     (12: bias alone, the kernel's channel-wrapping form), RRDB's ``fuse``
+     (128: bias and two residuals) and its ``up`` (512: bias and leaky
+     ReLU), held bit-equal to the plain version, timed
+     beside its byte bound and beside PyTorch's own route (the cuDNN path's
+     ``add_`` of the bias over the channels-last NCHW view, then each op
+     as its own pass; never called by the port); ptxas registers and spills;
   3. the main path at full width: bench.py's 8-frame 1080p moving-gradient
      clip (plus seeded noise) -> complexity + motion-contrast saliency ->
      removability scores -> ``adaptive_downsample`` (through the kernel) ->
@@ -206,14 +215,19 @@ def block_transform_bound_ms(m, b, c, levels, in_size=4, out_size=4):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-KERNELS = {  # name -> (wrapper in kernels.block_transform, source, TPU kernel replaced)
-    "block_transform": ("apply_block_matrix_cuda",
+KERNELS = {  # name -> (wrapper, source, TPU kernel replaced)
+    "block_transform": ("block_transform.apply_block_matrix_cuda",
                         "elvis_tpu_torch/kernels/csrc/block_transform.cu",
                         "elvis_tpu/kernels/block_transform.py:241"),
-    "block_transform_batched": ("apply_block_matrix_batched_cuda",
+    "block_transform_batched": ("block_transform.apply_block_matrix_batched_cuda",
                                 "elvis_tpu_torch/kernels/csrc/block_transform_batched.cu",
                                 "elvis_tpu/kernels/block_transform.py:119"),
+    "conv_epilogue": ("conv_epilogue.conv_epilogue_cuda",
+                      "elvis_tpu_torch/kernels/csrc/conv_epilogue.cu",
+                      "none: XLA fuses the flax convs' bias, activation and residuals"),
 }
+BLOCK_KERNELS = ("block_transform", "block_transform_batched")  # phase 2's pair
+STUDENT_TRUNK_CONVS = 8  # srnet_student: head, six convs, up; each one conv_epilogue launch
 KERNEL_TOL = 1e-3
 U8_SHARE_TOL = 1e-3  # share of uint8 pixels that may differ (by 1 LSB) from the plain version
 
@@ -408,9 +422,9 @@ def phase_kernels():
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    fns = {name: getattr(bt, KERNELS[name][0]) for name in KERNELS}
+    fns = {name: getattr(bt, KERNELS[name][0].split(".")[1]) for name in BLOCK_KERNELS}
     m8, m16 = N * (H // 8) * (W // 8), N * (H // 16) * (W // 16)
-    both = tuple(KERNELS)
+    both = BLOCK_KERNELS
     shapes = [  # (label, b, table, M, C, kernels): the main path's table first
         ("b8_L4_resample_linear", 8, bt.resample_matrix_table(8, "linear"), m8, 3, both),
         ("b8_L11_blur", 8, bt.blur_matrix_table(8, 10), m8, 3, both),
@@ -427,7 +441,7 @@ def phase_kernels():
     routes = {"block_transform":
               lambda table, t, x, i: bt.apply_block_matrix_kron(x, table, i).contiguous(),
               "block_transform_batched": lambda table, t, x, i: bmm_route(t, x, i)}
-    results = {name: [] for name in KERNELS}
+    results = {name: [] for name in BLOCK_KERNELS}
     for label, b, table, m, c, names in shapes:
         ell = table.shape[0]
         x = torch.rand((m, b, b, c), generator=gen, device=dev) * 255
@@ -511,6 +525,80 @@ def phase_kernels():
     return results, phase_frame_layout(bt, gen)
 
 
+EPILOGUE_ROWS = [  # (label, (N, H, W, C), slope, residual scale, outer scale)
+    ("student_conv_bias_slope", (N, H // 2, W // 2, 256), 0.2, None, None),
+    ("student_up_bias", (N, H // 2, W // 2, 12), None, None, None),
+    ("rrdb_fuse_bias_two_residuals", (N, H // 2, W // 2, 128), None, 0.2, 0.2),
+    ("rrdb_up_bias_slope", (N, H // 2, W // 2, 512), 0.2, None, None),
+]
+
+
+def library_epilogue(y, bias, slope, residual, scale, outer, outer_scale):
+    """PyTorch's route for a conv output without its bias: the bias added in
+    place over the channels-last NCHW view, as ``aten::_convolution`` does
+    after cuDNN, then one pass per op."""
+    y.permute(0, 3, 1, 2).add_(bias.reshape(1, -1, 1, 1))
+    if slope is not None:
+        y = torch.nn.functional.leaky_relu(y, slope)
+    if residual is not None:
+        y = residual + scale * y
+    if outer is not None:
+        y = outer + outer_scale * y
+    return y
+
+
+def phase_epilogue():
+    """The conv epilogue kernel at the nets' shapes: bit-equal to the plain
+    version, timed with CUDA events beside its byte bound, the plain version
+    and PyTorch's own route (phase 2 built it). Returns the rows."""
+    from elvis_tpu_torch.kernels import conv_epilogue as epi
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for label, shape, slope, scale, outer_scale in EPILOGUE_ROWS:
+        def rand(*s):
+            return (torch.randn(s, generator=gen, device=dev) * 2).to(torch.bfloat16)
+
+        y0, bias = rand(*shape), rand(shape[-1])
+        residual = rand(*shape) if scale is not None else None
+        outer = rand(*shape) if outer_scale is not None else None
+        ops = (slope, residual, 1.0 if scale is None else scale, outer,
+               1.0 if outer_scale is None else outer_scale)
+        want = epi.conv_epilogue(y0, bias, *ops)
+        lib = library_epilogue(y0.clone(), bias, *ops)
+        y = y0.clone()
+        got = epi.conv_epilogue_cuda(y, bias, *ops)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"conv_epilogue {label}: kernel and plain version differ "
+                                      f"by {(got.float() - want.float()).abs().max().item()}")
+        check(torch.equal(lib, want), f"conv_epilogue {label}: PyTorch's route differs from "
+                                      "the plain version")
+        del want, lib, got
+        # in place: each timed call rewrites y (the values do not matter to the time)
+        calls = {"kernel": lambda: epi.conv_epilogue_cuda(y, bias, *ops),
+                 "library": lambda: library_epilogue(y, bias, *ops)}
+        runs = {k: [] for k in calls}
+        for key in list(calls) + list(reversed(calls)):
+            runs[key].append(cuda_ms(calls[key], iters=20))
+        plain_ms = cuda_ms(lambda: epi.conv_epilogue(y0, bias, *ops), iters=10)
+        n = y0.numel()
+        nbytes = 2 * n * (2 + (residual is not None) + (outer is not None)) + 2 * shape[-1]
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ms, lib_ms = (sum(runs[k]) / len(runs[k]) for k in ("kernel", "library"))
+        print(f"[epilogue] {label} {shape}: bit-equal to the plain version; kernel {ms:.4f} ms "
+              f"({', '.join(f'{r:.4f}' for r in runs['kernel'])}), PyTorch's route "
+              f"{lib_ms:.4f} ms ({', '.join(f'{r:.4f}' for r in runs['library'])}), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes: {nbytes:,} B), "
+              f"{bound / ms:.1%} of bound")
+        rows.append({"label": label, "shape": list(shape), "max_abs_err": 0.0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+                     "library_ms": lib_ms})
+        del y0, y, bias, residual, outer
+    print(json.dumps({"epilogue": rows}))
+    return rows
+
+
 def make_clip(device):
     """bench.py's structured 1080p clip (moving gradients), grey in RGB,
     plus N(0, 2) noise from a seeded generator; uint8 (N, H, W, 3)."""
@@ -544,7 +632,9 @@ def phase_main_path():
     from elvis_tpu_torch.metrics import masked_psnr, masked_ssim
     from elvis_tpu_torch.pipeline import ElvisConfig
     from elvis_tpu_torch.restore.backends import resolve_sr_backend
+    from elvis_tpu_torch.utils.trace import counter
 
+    nets = counter("nets")
     dev = torch.device("cuda")
     cfg = ElvisConfig()
     check(cfg.block_size == B, "default block size changed")
@@ -577,8 +667,9 @@ def phase_main_path():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
+    nets.clear()
     degraded, levels, restored, metrics, first_ms = run_path()
-    launches = dict(LAUNCHES)
+    launches, net_convs = dict(LAUNCHES), dict(nets)
     peak = torch.cuda.max_memory_allocated()
     psnr_dec, psnr_res, psnr_res_fg, ssim_res = metrics
     check(launches.get("block_transform", 0) == 1,
@@ -603,6 +694,13 @@ def phase_main_path():
     max_level = int(levels.max())
     print(f"[main] level histogram (levels 0..3): {lv_hist}; max level {max_level}")
     check(max_level >= 1, "no block was downsampled")
+    # one student call per stage of the progressive restore, each trunk conv
+    # fused into one conv_epilogue launch
+    want = STUDENT_TRUNK_CONVS * max_level
+    check(launches.get("conv_epilogue", 0) == want
+          and net_convs == {"epilogue.fused": want},
+          f"the restore launches conv_epilogue {want} times ({STUDENT_TRUNK_CONVS} trunk convs "
+          f"x {max_level} stages), every trunk conv fused: {launches}, nets {net_convs}")
     for name, v in (("psnr_degraded", psnr_dec), ("psnr_restored", psnr_res),
                     ("psnr_restored_fg", psnr_res_fg), ("ssim_restored", ssim_res)):
         check(bool(torch.isfinite(v).all()), f"{name} not finite: {v.tolist()}")
@@ -2850,6 +2948,8 @@ def main() -> int:
 
     starting("2 kernels")
     kernel_results, frame_rows = phase_kernels()
+    starting("2b conv epilogue")
+    epilogue_rows = phase_epilogue()
     starting("3 main path")
     launches_main, main_tensors = phase_main_path()
     starting("4 blur path")
@@ -2879,9 +2979,11 @@ def main() -> int:
     starting("kernel table")
     # the transform kernel's headline row is what the paths launch: uint8
     # frames, b=8, the main path's table; the batched kernel's is the block
-    # contract at the same table (b=8, L=4, M=259,200, C=3)
+    # contract at the same table (b=8, L=4, M=259,200, C=3); the epilogue's
+    # is the student's trunk conv (256 channels, bias and leaky ReLU)
     all_rows = {"block_transform": frame_rows + kernel_results["block_transform"],
-                "block_transform_batched": kernel_results["block_transform_batched"]}
+                "block_transform_batched": kernel_results["block_transform_batched"],
+                "conv_epilogue": epilogue_rows}
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         rows = all_rows[kname]

@@ -28,6 +28,7 @@ BUILD_DIR = _HERE.parent / "_build"
 SOURCES: Dict[str, Path] = {
     "block_transform": _HERE / "csrc" / "block_transform.cu",
     "block_transform_batched": _HERE / "csrc" / "block_transform_batched.cu",
+    "conv_epilogue": _HERE / "csrc" / "conv_epilogue.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

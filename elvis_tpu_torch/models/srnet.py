@@ -12,6 +12,14 @@ default; flax ``nn.Conv(dtype=bf16)`` casts input, kernel and bias to bf16
 and returns bf16, so the RRDB residual sums are bf16 arithmetic too), and
 the 3x3 residual tail runs in float32 with TF32 off. The output is
 ``clip(lanczos4_2x(x) + 127.5 * tail(...), 0, 255)``.
+
+Each trunk conv takes its epilogue (bias, leaky ReLU, scaled residuals) as
+arguments. In bf16 inference on a card (no autograd) the conv runs without
+its bias and the hand-written kernel ``kernels.conv_epilogue`` applies all
+of it in one in-place pass, bit-equal to the PyTorch ops it replaces; on the
+CPU, in float32 and with gradients the PyTorch ops run as written. The
+``nets`` counters ``epilogue.fused`` and ``epilogue.plain`` count the trunk
+convs of each route.
 """
 
 from __future__ import annotations
@@ -24,9 +32,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from elvis_tpu_torch.device import full_fp32
+from elvis_tpu_torch.kernels.conv_epilogue import conv_epilogue_cuda, epilogue_rest
 from elvis_tpu_torch.ops.resize import interleave_phases, resize, upsample2x_phases
+from elvis_tpu_torch.utils.trace import counter
 
 __all__ = ["SRNet", "SRNetCompact", "SRNetLarge", "srnet_upsample_fn", "srnet_phase_fn"]
+
+NETS = counter("nets")
 
 
 @functools.lru_cache(maxsize=2)
@@ -88,9 +100,21 @@ class _Trunk(nn.Module):
     ``(N,H,W,2,2,Cin)`` pre-shuffle tensor in ``dtype``, with every
     activation of the flax model applied."""
 
-    def _conv(self, conv: nn.Conv2d, h: torch.Tensor) -> torch.Tensor:
-        return _nhwc_conv(h.to(self.dtype), conv.weight.to(self.dtype),
-                          conv.bias.to(self.dtype))
+    def _conv(self, conv: nn.Conv2d, h: torch.Tensor, slope: "float | None" = None,
+              residual: "torch.Tensor | None" = None, scale: float = 1.0,
+              outer: "torch.Tensor | None" = None, outer_scale: float = 1.0) -> torch.Tensor:
+        """``conv`` on ``h`` in ``dtype``, then ``leaky_relu(., slope)``,
+        ``residual + scale * .`` and ``outer + outer_scale * .`` (each only
+        where given), fused into the one kernel in bf16 inference on a card."""
+        h = h.to(self.dtype)
+        weight, bias = conv.weight.to(self.dtype), conv.bias.to(self.dtype)
+        if h.is_cuda and self.dtype == torch.bfloat16 and not torch.is_grad_enabled():
+            NETS["epilogue.fused"] += 1
+            y = _nhwc_conv(h, weight, None).contiguous()
+            return conv_epilogue_cuda(y, bias, slope, residual, scale, outer, outer_scale)
+        NETS["epilogue.plain"] += 1
+        return epilogue_rest(_nhwc_conv(h, weight, bias), slope, residual, scale, outer,
+                             outer_scale)
 
     def _trunk(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -120,12 +144,14 @@ class DenseBlock(nn.Module):
             setattr(self, f"conv{i}", nn.Conv2d(features + i * growth, growth, 3, padding=1))
         self.fuse = nn.Conv2d(features + 3 * growth, features, 3, padding=1)
 
-    def forward(self, x: torch.Tensor, conv) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, conv, outer: "torch.Tensor | None" = None) -> torch.Tensor:
+        """With ``outer``, ``outer + 0.2 * (x + 0.2 * fuse(...))``: the
+        enclosing RRDB's residual, folded into ``fuse``'s epilogue."""
         feats = [x]
         for i in range(3):
-            feats.append(F.leaky_relu(conv(getattr(self, f"conv{i}"), torch.cat(feats, -1)),
-                                      0.2))
-        return x + 0.2 * conv(self.fuse, torch.cat(feats, -1))
+            feats.append(conv(getattr(self, f"conv{i}"), torch.cat(feats, -1), slope=0.2))
+        return conv(self.fuse, torch.cat(feats, -1), residual=x, scale=0.2,
+                    outer=outer, outer_scale=0.2)
 
 
 class RRDB(nn.Module):
@@ -137,7 +163,7 @@ class RRDB(nn.Module):
         self.db1 = DenseBlock(features, growth)
 
     def forward(self, x: torch.Tensor, conv) -> torch.Tensor:
-        return x + 0.2 * self.db1(self.db0(x, conv), conv)
+        return self.db1(self.db0(x, conv), conv, outer=x)
 
 
 class SRNet(_Trunk):
@@ -166,11 +192,11 @@ class SRNet(_Trunk):
         skip = h
         for i in range(self.num_blocks):
             h = getattr(self, f"rrdb{i}")(h, self._conv)
-        h = skip + self._conv(self.body_out, h)
-        h = self._conv(self.up, h)
-        n, hh, ww, c = h.shape
+        h = self._conv(self.body_out, h, residual=skip)
         # leaky_relu commutes with the pixel shuffle: apply it pre-shuffle
-        return F.leaky_relu(h.reshape(n, hh, ww, 2, 2, c // 4), 0.2)
+        h = self._conv(self.up, h, slope=0.2)
+        n, hh, ww, c = h.shape
+        return h.reshape(n, hh, ww, 2, 2, c // 4)
 
 
 class SRNetCompact(_Trunk):
@@ -193,9 +219,9 @@ class SRNetCompact(_Trunk):
 
     def _trunk(self, x: torch.Tensor) -> torch.Tensor:
         h = (x.float() / 127.5 - 1.0).to(self.dtype)
-        h = F.leaky_relu(self._conv(self.head, h), 0.2)
+        h = self._conv(self.head, h, slope=0.2)
         for i in range(self.num_convs):
-            h = F.leaky_relu(self._conv(getattr(self, f"conv{i}"), h), 0.2)
+            h = self._conv(getattr(self, f"conv{i}"), h, slope=0.2)
         h = self._conv(self.up, h)
         n, hh, ww, _ = h.shape
         return h.reshape(n, hh, ww, 2, 2, 3)
