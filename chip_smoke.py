@@ -21,7 +21,10 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
      student's convs (256 channels bf16: bias and leaky ReLU) and its ``up``
      (12: bias alone, the kernel's channel-wrapping form), RRDB's ``fuse``
      (128: bias and two residuals) and its ``up`` (512: bias and leaky
-     ReLU), held bit-equal to the plain version, timed
+     ReLU); Real-ESRGAN's growth convs (32 at its widest body, 8 x 270 x
+     480: bias and leaky ReLU), its last dense block's ``conv5`` there (64:
+     bias and two residuals) and its ``conv_hr`` (64 at 8 x 1080 x 1920,
+     bias and leaky ReLU); each held bit-equal to the plain version, timed
      beside its byte bound and beside PyTorch's own route (the cuDNN path's
      ``add_`` of the bias over the channels-last NCHW view, then each op
      as its own pass; never called by the port); ptxas registers and spills;
@@ -32,6 +35,11 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
      256 ch x 6 convs) -> ``progressive_restore`` -> masked PSNR / SSIM;
      then the same slice on a small crop on the card and on the CPU, held
      to each other;
+  3b. the pinned ``realesrgan_x2plus`` tier (Real-ESRGAN's RRDBNet, 64
+     features, growth 32, 23 RRDBs) resolved by name on PyTorch's default
+     init written as a weights file, over one 2x stage of the clip: one
+     ``conv_epilogue`` launch for each of its 350 convs before ``conv_last``,
+     each fused;
   4. the blur path and the classical rows at full width, on the same clip
      and scores: ``adaptive_blur`` -> ``resolve_deblur_backend`` ('deblur_net'
      = the committed DeblurUNet, and 'unsharp'), and
@@ -228,6 +236,9 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel replaced)
 }
 BLOCK_KERNELS = ("block_transform", "block_transform_batched")  # phase 2's pair
 STUDENT_TRUNK_CONVS = 8  # srnet_student: head, six convs, up; each one conv_epilogue launch
+# realesrgan_x2plus: 23 RRDBs x 3 dense blocks x 5 convs, conv_first, conv_body,
+# conv_up1, conv_up2, conv_hr; conv_last runs in float32 without it
+REALESRGAN_TRUNK_CONVS = 23 * 3 * 5 + 5
 KERNEL_TOL = 1e-3
 U8_SHARE_TOL = 1e-3  # share of uint8 pixels that may differ (by 1 LSB) from the plain version
 
@@ -530,6 +541,9 @@ EPILOGUE_ROWS = [  # (label, (N, H, W, C), slope, residual scale, outer scale)
     ("student_up_bias", (N, H // 2, W // 2, 12), None, None, None),
     ("rrdb_fuse_bias_two_residuals", (N, H // 2, W // 2, 128), None, 0.2, 0.2),
     ("rrdb_up_bias_slope", (N, H // 2, W // 2, 512), 0.2, None, None),
+    ("realesrgan_growth_bias_slope", (N, H // 4, W // 4, 32), 0.2, None, None),
+    ("realesrgan_conv5_bias_two_residuals", (N, H // 4, W // 4, 64), None, 0.2, 0.2),
+    ("realesrgan_hr_bias_slope", (N, H, W, 64), 0.2, None, None),
 ]
 
 
@@ -759,6 +773,56 @@ def phase_main_path():
     scores, fg = score(frames, cfg)
     return launches, {"frames": frames, "scores": scores, "fg": fg, "degraded": degraded,
                       "levels": levels}
+
+
+def phase_realesrgan_path(main):
+    """The pinned ``realesrgan_x2plus`` tier through ``resolve_sr_backend``
+    and ``progressive_restore`` over one 2x stage (every block at level 1)
+    of the main path's clip, on PyTorch's default init written as a
+    weights file: ``conv_epilogue`` once for each trunk conv, each fused.
+    Returns the launches."""
+    import tempfile
+
+    from elvis_tpu_torch.kernels import LAUNCHES
+    from elvis_tpu_torch.models import io as tio
+    from elvis_tpu_torch.models.srnet import RealESRGANx2
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+    from elvis_tpu_torch.utils.trace import counter
+
+    dev = torch.device("cuda")
+    torch.manual_seed(SEED)
+    state = RealESRGANx2(dtype=torch.float32).state_dict()
+    meta = {"arch": tio.REALESRGAN_ARCH, "num_feat": 64, "num_grow_ch": 32, "num_block": 23,
+            "scale": 2}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = f"{tmp}/realesrgan_x2plus.npz"
+        tio.write_npz(path, state, meta)
+        restore, prov = resolve_sr_backend("realesrgan_x2plus",
+                                           ElvisConfig(srnet_params_path=path), device=dev)
+    print(f"[realesrgan] backend 'realesrgan_x2plus' -> {prov}")
+    check(prov.startswith("progressive_neural[realesrgan_x2plus:"),
+          f"realesrgan_x2plus did not resolve to its tier: {prov}")
+    frames = main["frames"]
+    levels = torch.ones((N, H // B, W // B), dtype=torch.int32, device=dev)
+    restore(frames, levels, B)  # cuDNN's first calls at these shapes
+    nets = counter("nets")
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    nets.clear()
+    restored = restore(frames, levels, B)
+    torch.cuda.synchronize()
+    launches, net_convs = dict(LAUNCHES), dict(nets)
+    check(restored.shape == frames.shape and restored.dtype == torch.uint8,
+          f"restored {tuple(restored.shape)} {restored.dtype}")
+    check(launches.get("conv_epilogue", 0) == REALESRGAN_TRUNK_CONVS
+          and net_convs == {"epilogue.fused": REALESRGAN_TRUNK_CONVS},
+          f"one 2x stage launches conv_epilogue {REALESRGAN_TRUNK_CONVS} times, every conv "
+          f"before conv_last fused: {launches}, nets {net_convs}")
+    ms = cuda_ms(lambda: restore(frames, levels, B), iters=3, warmup=0)
+    print(f"[realesrgan] one 2x stage of the 8-frame clip (540x960 -> 1080x1920): "
+          f"{json.dumps(launches)}, nets {json.dumps(net_convs)}; {ms:.3f} ms (CUDA events)")
+    return launches
 
 
 def phase_blur_path(main):
@@ -2952,6 +3016,8 @@ def main() -> int:
     epilogue_rows = phase_epilogue()
     starting("3 main path")
     launches_main, main_tensors = phase_main_path()
+    starting("3b realesrgan path")
+    launches_realesrgan = phase_realesrgan_path(main_tensors)
     starting("4 blur path")
     launches_blur = phase_blur_path(main_tensors)
     profile = "--profile" in sys.argv[1:]
@@ -2987,7 +3053,9 @@ def main() -> int:
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         rows = all_rows[kname]
-        by_path = {"main": launches_main.get(kname, 0), "blur": launches_blur.get(kname, 0),
+        by_path = {"main": launches_main.get(kname, 0),
+                   "realesrgan": launches_realesrgan.get(kname, 0),
+                   "blur": launches_blur.get(kname, 0),
                    "codec": launches_codec.get(kname, 0),
                    "pipeline": launches_pipeline.get(kname, 0),
                    "backends": launches_backends.get(kname, 0),

@@ -110,13 +110,16 @@ def conv_epilogue_cuda(y: torch.Tensor, bias: torch.Tensor, slope: "float | None
     if y.numel() == 0:
         return y
     fn = _kernel_fn()
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
+    index = y.device.index
+    with torch.cuda.device(index):
+        # the current stream's raw handle (a private call): the public
+        # ``current_stream(...).cuda_stream`` builds a Stream object a call
+        stream = torch._C._cuda_getCurrentRawStream(index)
         err = fn(y.data_ptr(), bias.data_ptr(),
                  None if residual is None else residual.data_ptr(),
                  None if outer is None else outer.data_ptr(), y.numel(), c,
                  int(slope is not None), 0.0 if slope is None else slope, scale, outer_scale,
-                 _sm_count(y.device.index), stream)
+                 _sm_count(index), stream)
     if err != 0:
         raise RuntimeError(f"conv_epilogue kernel launch failed: CUDA error {err} "
                            f"(y {tuple(y.shape)})")

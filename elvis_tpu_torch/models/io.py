@@ -6,7 +6,11 @@ The shipped checkpoints reach the port as numpy ``.npz`` files under
 where the model casts the leaf to bf16 before use (RRDB ``SRNet``'s
 trunk), plus the model's hyper-parameters as scalars (``features`` and
 ``num_convs`` for the SRNetCompact family; ``features``, ``growth`` and
-``num_blocks`` for RRDB ``SRNet``; ``features``,
+``num_blocks`` for RRDB ``SRNet``; ``arch = "realesrgan_rrdbnet"``,
+``num_feat``, ``num_grow_ch``, ``num_block`` and ``scale`` for
+``RealESRGANx2``, whose layers carry BasicSR's state-dict names
+(``conv_first``, ``body/{i}/rdb{j}/conv{k}``, ``conv_body``, ``conv_up1``,
+``conv_up2``, ``conv_hr``, ``conv_last``); ``features``,
 ``levels`` and the trained ``max_strength`` for the deblur net;
 ``features`` and ``temporal_window`` for the inpaint net; ``features`` for
 the saliency net and the diffusion UNet).
@@ -39,7 +43,7 @@ from elvis_tpu_torch.metrics.perceptual import PerceptualNet
 from elvis_tpu_torch.models.diffusion import DiffusionRestorer, _CondUNet
 from elvis_tpu_torch.models.inpaint_net import InpaintNet
 from elvis_tpu_torch.models.saliency_net import SaliencyNet
-from elvis_tpu_torch.models.srnet import SRNet, SRNetCompact
+from elvis_tpu_torch.models.srnet import RealESRGANx2, SRNet, SRNetCompact
 
 __all__ = [
     "default_checkpoint_dir",
@@ -61,6 +65,10 @@ __all__ = [
     "load_saliency",
     "load_diffusion",
 ]
+
+
+# the ``arch`` scalar of a Real-ESRGAN RRDBNet weights file
+REALESRGAN_ARCH = "realesrgan_rrdbnet"
 
 
 def weights_dir() -> str:
@@ -178,6 +186,9 @@ def write_npz(path: str, params: Mapping[str, torch.Tensor], meta: Mapping) -> N
 
 def model_meta(model: torch.nn.Module) -> Dict:
     """The scalars a weights file records so the loaders rebuild ``model``."""
+    if isinstance(model, RealESRGANx2):
+        return {"arch": REALESRGAN_ARCH, "num_feat": model.num_feat,
+                "num_grow_ch": model.num_grow_ch, "num_block": model.num_block, "scale": 2}
     if isinstance(model, SRNet):
         return {"features": model.features, "growth": model.growth,
                 "num_blocks": model.num_blocks}
@@ -220,22 +231,35 @@ def read_npz(path: str):
 
 
 def srnet_arch(meta: Mapping) -> tuple:
-    """The architecture an SR weights file holds: ``('srnet', features,
-    growth, num_blocks)`` for RRDB ``SRNet`` (its meta has ``num_blocks``),
-    else ``('compact', features, num_convs)``."""
+    """The architecture an SR weights file holds: ``('realesrgan', num_feat,
+    num_grow_ch, num_block, scale)`` for Real-ESRGAN's RRDBNet (its meta has
+    ``arch = "realesrgan_rrdbnet"``), ``('srnet', features, growth,
+    num_blocks)`` for RRDB ``SRNet`` (its meta has ``num_blocks``), else
+    ``('compact', features, num_convs)``."""
+    if meta.get("arch") == REALESRGAN_ARCH:
+        return ("realesrgan", int(meta["num_feat"]), int(meta["num_grow_ch"]),
+                int(meta["num_block"]), int(meta["scale"]))
     if "num_blocks" in meta:
         return "srnet", int(meta["features"]), int(meta["growth"]), int(meta["num_blocks"])
     return "compact", int(meta["features"]), int(meta["num_convs"])
 
 
-def load_srnet(path: str, device: "str | torch.device" = "cuda") -> "SRNet | SRNetCompact":
+def load_srnet(path: str,
+               device: "str | torch.device" = "cuda") -> "SRNet | SRNetCompact | RealESRGANx2":
     """An inference-ready SR net from a port weights file, on ``device``:
-    RRDB ``SRNet`` when the file records ``num_blocks``, else SRNetCompact."""
+    ``RealESRGANx2`` when the file records Real-ESRGAN's RRDBNet (2x only),
+    RRDB ``SRNet`` when it records ``num_blocks``, else SRNetCompact."""
     dev = resolve_device(device)
     tree, meta = read_npz(path)
     arch = srnet_arch(meta)
-    model = (SRNet(features=arch[1], growth=arch[2], num_blocks=arch[3]) if arch[0] == "srnet"
-             else SRNetCompact(features=arch[1], num_convs=arch[2]))
+    if arch[0] == "realesrgan":
+        if arch[4] != 2:
+            raise ValueError(f"{path}: a {arch[4]}x RRDBNet; the port runs the 2x one only")
+        model = RealESRGANx2(num_feat=arch[1], num_grow_ch=arch[2], num_block=arch[3])
+    elif arch[0] == "srnet":
+        model = SRNet(features=arch[1], growth=arch[2], num_blocks=arch[3])
+    else:
+        model = SRNetCompact(features=arch[1], num_convs=arch[2])
     model.load_state_dict(params_from_flax(tree))
     return model.to(dev).eval().requires_grad_(False)
 

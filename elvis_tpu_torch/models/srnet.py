@@ -1,17 +1,21 @@
 """The 2x super-resolution nets (port of ``elvis_tpu.models.srnet``): the
-SRNetCompact conv-stack family (student, compact, large) and the RRDB
-``SRNet``.
+SRNetCompact conv-stack family (student, compact, large), the RRDB
+``SRNet``, and ``RealESRGANx2``, Real-ESRGAN's published 2x RRDBNet
+(``RealESRGAN_x2plus``), which the JAX package does not have.
 
 Public layout stays NHWC: ``(N, H, W, 3)`` float32 in [0, 255] ->
-``(N, 2H, 2W, 3)``, or the pre-interleave phase tensor ``(N, H, W, 2, 2, 3)``.
-Inside, the NHWC input is viewed as NCHW with channels-last strides, the
-layout cuDNN's bf16 convolutions prefer.
+``(N, 2H, 2W, 3)``, or, for the SRNetCompact family and ``SRNet``, the
+pre-interleave phase tensor ``(N, H, W, 2, 2, 3)``. Inside, the NHWC input
+is viewed as NCHW with channels-last strides, the layout cuDNN's bf16
+convolutions prefer.
 
-Numerics mirror the flax model: the trunk runs in ``dtype`` (bf16 by
-default; flax ``nn.Conv(dtype=bf16)`` casts input, kernel and bias to bf16
-and returns bf16, so the RRDB residual sums are bf16 arithmetic too), and
-the 3x3 residual tail runs in float32 with TF32 off. The output is
-``clip(lanczos4_2x(x) + 127.5 * tail(...), 0, 255)``.
+Numerics of the SRNetCompact family and ``SRNet`` mirror the flax model:
+the trunk runs in ``dtype`` (bf16 by default; flax ``nn.Conv(dtype=bf16)``
+casts input, kernel and bias to bf16 and returns bf16, so the RRDB residual
+sums are bf16 arithmetic too), and the 3x3 residual tail runs in float32
+with TF32 off. Their output is ``clip(lanczos4_2x(x) + 127.5 * tail(...),
+0, 255)``. ``RealESRGANx2`` has no Lanczos base and no phase form: its
+output is the net's own, clamped as ``RealESRGANer`` does (see the class).
 
 Each trunk conv takes its epilogue (bias, leaky ReLU, scaled residuals) as
 arguments. In bf16 inference on a card (no autograd) the conv runs without
@@ -19,7 +23,10 @@ its bias and the hand-written kernel ``kernels.conv_epilogue`` applies all
 of it in one in-place pass, bit-equal to the PyTorch ops it replaces; on the
 CPU, in float32 and with gradients the PyTorch ops run as written. The
 ``nets`` counters ``epilogue.fused`` and ``epilogue.plain`` count the trunk
-convs of each route.
+convs of each route, and ``modpad`` the ``RealESRGANx2`` inputs of odd
+height or width. Under ``torch.profiler`` (``utils.trace.span``) both RRDB
+nets record ``srnet.body`` (the RRDB chain and its closing conv), and
+``RealESRGANx2`` also ``srnet.upsample_head`` and ``srnet.modpad``.
 """
 
 from __future__ import annotations
@@ -34,9 +41,10 @@ import torch.nn.functional as F
 from elvis_tpu_torch.device import full_fp32
 from elvis_tpu_torch.kernels.conv_epilogue import conv_epilogue_cuda, epilogue_rest
 from elvis_tpu_torch.ops.resize import interleave_phases, resize, upsample2x_phases
-from elvis_tpu_torch.utils.trace import counter
+from elvis_tpu_torch.utils.trace import counter, span
 
-__all__ = ["SRNet", "SRNetCompact", "SRNetLarge", "srnet_upsample_fn", "srnet_phase_fn"]
+__all__ = ["SRNet", "SRNetCompact", "SRNetLarge", "RealESRGANx2", "srnet_upsample_fn",
+           "srnet_phase_fn"]
 
 NETS = counter("nets")
 
@@ -93,12 +101,10 @@ class _TailConv(nn.Module):
         return out.reshape(n, hh, ww, 2, 2, co) + self.bias
 
 
-class _Trunk(nn.Module):
+class _ConvNet(nn.Module):
     """Shared by the SR nets: trunk convs in ``dtype`` (flax
-    ``nn.Conv(dtype=...)`` casts input, kernel and bias), the float32 tail
-    and the Lanczos-4 base. ``_trunk`` returns the up conv's
-    ``(N,H,W,2,2,Cin)`` pre-shuffle tensor in ``dtype``, with every
-    activation of the flax model applied."""
+    ``nn.Conv(dtype=...)`` casts input, kernel and bias) with their
+    epilogue, and the RRDB body."""
 
     def _conv(self, conv: nn.Conv2d, h: torch.Tensor, slope: "float | None" = None,
               residual: "torch.Tensor | None" = None, scale: float = 1.0,
@@ -115,6 +121,22 @@ class _Trunk(nn.Module):
         NETS["epilogue.plain"] += 1
         return epilogue_rest(_nhwc_conv(h, weight, bias), slope, residual, scale, outer,
                              outer_scale)
+
+    def _body(self, blocks, closing: nn.Conv2d, h: torch.Tensor) -> torch.Tensor:
+        """The RRDB chain ``blocks`` on ``h``, then ``closing`` with the long
+        skip: ``h + closing(blocks(h))``."""
+        with span("srnet.body"):
+            skip = h
+            for block in blocks:
+                h = block(h, self._conv)
+            return self._conv(closing, h, residual=skip)
+
+
+class _Trunk(_ConvNet):
+    """The nets with a phase form: the float32 tail and the Lanczos-4 base
+    over ``_trunk``, which returns the up conv's ``(N,H,W,2,2,Cin)``
+    pre-shuffle tensor in ``dtype``, with every activation of the flax
+    model applied."""
 
     def _trunk(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -135,35 +157,48 @@ class _Trunk(nn.Module):
 
 
 class DenseBlock(nn.Module):
-    """Three growth convs over the running concatenation, then ``fuse``
-    back to ``features``; ``x + 0.2 * fuse(...)``."""
+    """Growth convs over the running concatenation, then a fuse conv back
+    to ``features``: ``x + 0.2 * fuse(cat(x, x1, ...))``, with ``x_k =
+    lrelu(conv_k(cat(x, x1, ..., x_{k-1})))``. ``names`` are the convs'
+    attribute names, the fuse conv last (``SRNet``: three growth convs
+    ``conv0..conv2`` and ``fuse``; ESRGAN: ``conv1..conv5``)."""
 
-    def __init__(self, features: int, growth: int):
+    def __init__(self, features: int, growth: int,
+                 names: "tuple[str, ...]" = ("conv0", "conv1", "conv2", "fuse")):
         super().__init__()
-        for i in range(3):
-            setattr(self, f"conv{i}", nn.Conv2d(features + i * growth, growth, 3, padding=1))
-        self.fuse = nn.Conv2d(features + 3 * growth, features, 3, padding=1)
+        *self.growth_names, self.fuse_name = names
+        for i, name in enumerate(self.growth_names):
+            setattr(self, name, nn.Conv2d(features + i * growth, growth, 3, padding=1))
+        setattr(self, self.fuse_name,
+                nn.Conv2d(features + len(self.growth_names) * growth, features, 3, padding=1))
 
     def forward(self, x: torch.Tensor, conv, outer: "torch.Tensor | None" = None) -> torch.Tensor:
         """With ``outer``, ``outer + 0.2 * (x + 0.2 * fuse(...))``: the
         enclosing RRDB's residual, folded into ``fuse``'s epilogue."""
         feats = [x]
-        for i in range(3):
-            feats.append(conv(getattr(self, f"conv{i}"), torch.cat(feats, -1), slope=0.2))
-        return conv(self.fuse, torch.cat(feats, -1), residual=x, scale=0.2,
+        for name in self.growth_names:
+            feats.append(conv(getattr(self, name), torch.cat(feats, -1), slope=0.2))
+        return conv(getattr(self, self.fuse_name), torch.cat(feats, -1), residual=x, scale=0.2,
                     outer=outer, outer_scale=0.2)
 
 
 class RRDB(nn.Module):
-    """Two dense blocks, ``x + 0.2 * db1(db0(x))``."""
+    """Dense blocks in a chain, ``x + 0.2 * db_last(...(db_first(x)))``.
+    ``names`` are the dense blocks' attribute names (``SRNet``: ``db0``,
+    ``db1``; ESRGAN: ``rdb1..rdb3``) and ``conv_names`` their convs'."""
 
-    def __init__(self, features: int, growth: int):
+    def __init__(self, features: int, growth: int, names: "tuple[str, ...]" = ("db0", "db1"),
+                 conv_names: "tuple[str, ...]" = ("conv0", "conv1", "conv2", "fuse")):
         super().__init__()
-        self.db0 = DenseBlock(features, growth)
-        self.db1 = DenseBlock(features, growth)
+        self.names = names
+        for name in names:
+            setattr(self, name, DenseBlock(features, growth, conv_names))
 
     def forward(self, x: torch.Tensor, conv) -> torch.Tensor:
-        return self.db1(self.db0(x, conv), conv, outer=x)
+        h = x
+        for name in self.names[:-1]:
+            h = getattr(self, name)(h, conv)
+        return getattr(self, self.names[-1])(h, conv, outer=x)
 
 
 class SRNet(_Trunk):
@@ -189,10 +224,8 @@ class SRNet(_Trunk):
 
     def _trunk(self, x: torch.Tensor) -> torch.Tensor:
         h = self._conv(self.head, (x.float() / 127.5 - 1.0).to(self.dtype))
-        skip = h
-        for i in range(self.num_blocks):
-            h = getattr(self, f"rrdb{i}")(h, self._conv)
-        h = self._conv(self.body_out, h, residual=skip)
+        blocks = [getattr(self, f"rrdb{i}") for i in range(self.num_blocks)]
+        h = self._body(blocks, self.body_out, h)
         # leaky_relu commutes with the pixel shuffle: apply it pre-shuffle
         h = self._conv(self.up, h, slope=0.2)
         n, hh, ww, c = h.shape
@@ -232,6 +265,80 @@ def SRNetLarge() -> SRNetCompact:
     return SRNetCompact(features=256, num_convs=8)
 
 
+def _nearest2x(h: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x of an NHWC tensor, contiguous."""
+    n, hh, ww, c = h.shape
+    return h[:, :, None, :, None, :].expand(n, hh, 2, ww, 2, c).reshape(n, 2 * hh, 2 * ww, c)
+
+
+class RealESRGANx2(_ConvNet):
+    """Real-ESRGAN's published 2x net, ``RealESRGAN_x2plus``: BasicSR's
+    ``RRDBNet(num_in_ch=3, num_out_ch=3, num_feat=64, num_block=23,
+    num_grow_ch=32, scale=2)`` (``basicsr/archs/rrdbnet_arch.py``;
+    arXiv:2107.10833, arXiv:1809.00219), run as Real-ESRGAN's
+    ``RealESRGANer`` runs it, without tiling.
+
+    ``x / 255``, reflected at the bottom and right to an even height and
+    width (``RealESRGANer``'s ``mod_pad``); ``pixel_unshuffle(2)`` to 12
+    channels at half size (channel ``4c + 2a + b`` from pixel ``(2i + a,
+    2j + b)``); ``conv_first``; ``num_block`` RRDBs of three dense blocks
+    of four growth convs and a fuse (``body.{i}.rdb{j}.conv{1..5}``) and
+    ``conv_body`` with the long skip; nearest 2x, ``conv_up1``, leaky ReLU,
+    nearest 2x, ``conv_up2``, leaky ReLU, ``conv_hr``, leaky ReLU,
+    ``conv_last``; the pad cropped off, clamped to [0, 1], times 255.
+    Parameter names are BasicSR's state-dict names. Every conv before
+    ``conv_last`` is a trunk conv in ``dtype`` (bf16 by default; Real-ESRGAN
+    infers in fp16), its weights held in ``dtype`` (loading rounds them
+    once, as a cast per call would), ``conv_last`` in float32 with TF32
+    off."""
+
+    def __init__(self, num_feat: int = 64, num_grow_ch: int = 32, num_block: int = 23,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.num_feat, self.num_grow_ch, self.num_block = num_feat, num_grow_ch, num_block
+        self.dtype = dtype
+        self.conv_first = nn.Conv2d(12, num_feat, 3, padding=1)
+        self.body = nn.ModuleList(
+            RRDB(num_feat, num_grow_ch, ("rdb1", "rdb2", "rdb3"),
+                 ("conv1", "conv2", "conv3", "conv4", "conv5")) for _ in range(num_block))
+        self.conv_body = nn.Conv2d(num_feat, num_feat, 3, padding=1)
+        self.conv_up1 = nn.Conv2d(num_feat, num_feat, 3, padding=1)
+        self.conv_up2 = nn.Conv2d(num_feat, num_feat, 3, padding=1)
+        self.conv_hr = nn.Conv2d(num_feat, num_feat, 3, padding=1)
+        # the trunk's weights are held in dtype, so that no conv call casts
+        # them (two launches a conv, a third of the launches of a stage)
+        self.to(dtype)
+        self.conv_last = nn.Conv2d(num_feat, 3, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``(N, H, W, 3)`` float in [0, 255] -> ``(N, 2H, 2W, 3)`` float32."""
+        if self.dtype == torch.float32:
+            with full_fp32():
+                return self._forward(x)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, h, w, _ = x.shape
+        with span("srnet.modpad"):
+            x = x.float() / 255.0
+            if h % 2 or w % 2:
+                NETS["modpad"] += 1
+                x = F.pad(x.permute(0, 3, 1, 2), (0, w % 2, 0, h % 2), mode="reflect")
+                x = x.permute(0, 2, 3, 1)
+        hh, ww = x.shape[1] // 2, x.shape[2] // 2
+        feat = x.reshape(n, hh, 2, ww, 2, 3).permute(0, 1, 3, 5, 2, 4).reshape(n, hh, ww, 12)
+        feat = self._conv(self.conv_first, feat)
+        feat = self._body(self.body, self.conv_body, feat)
+        with span("srnet.upsample_head"):
+            feat = self._conv(self.conv_up1, _nearest2x(feat), slope=0.2)
+            feat = self._conv(self.conv_up2, _nearest2x(feat), slope=0.2)
+            feat = self._conv(self.conv_hr, feat, slope=0.2)
+            with full_fp32():
+                out = _nhwc_conv(feat.float(), self.conv_last.weight, self.conv_last.bias)
+        with span("srnet.modpad"):
+            return torch.clamp(out[:, :2 * h, :2 * w], 0.0, 1.0) * 255.0
+
+
 def srnet_phase_fn(model: nn.Module):
     """(frames) -> (N,H,W,2,2,3) float32 phase tensor of ``model``."""
 
@@ -244,8 +351,15 @@ def srnet_phase_fn(model: nn.Module):
 
 def srnet_upsample_fn(model: nn.Module):
     """Adapter: (frames) -> 2x frames, for the progressive restore loop's
-    ``upsample_fn`` slot. The callable carries ``.phase_fn``, the
+    ``upsample_fn`` slot. For a net with a phase form (not
+    ``RealESRGANx2``) the callable carries ``.phase_fn``, the
     pre-interleave variant the loop prefers."""
+    if not isinstance(model, _Trunk):
+        def up_direct(frames: torch.Tensor) -> torch.Tensor:
+            with torch.inference_mode():
+                return model(frames.float())
+
+        return up_direct
 
     def up(frames: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():

@@ -48,9 +48,12 @@ __all__ = ["resolve_sr_backend", "resolve_deblur_backend", "resolve_inpaint_back
 BackendFn = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 
 # the architecture each pinned tier's weights must hold (the student's
-# width and depth live in its file, so any SRNetCompact is a student)
+# width and depth live in its file, so any SRNetCompact is a student);
+# realesrgan_x2plus is Real-ESRGAN's published 2x RRDBNet, which ships no
+# weights: it loads only from a configured srnet_params_path
 _TIER_ARCH = {"srnet": ("srnet", 128, 128, 3), "srnet_compact": ("compact", 128, 5),
-              "srnet_large": ("compact", 256, 8), "srnet_student": None}
+              "srnet_large": ("compact", 256, 8), "srnet_student": None,
+              "realesrgan_x2plus": ("realesrgan", 64, 32, 23, 2)}
 _ENSEMBLE = ("srnet_compact", "srnet", "srnet_large")
 
 
@@ -93,8 +96,8 @@ def _sr_meta(path: str) -> dict:
 def _srnet_upsampler(config, which: Optional[str], device) -> Tuple[Optional[Callable], str]:
     """(2x upsample_fn or None, provenance), in the JAX package's order.
     ``which`` pins a tier ('srnet' RRDB, 'srnet_compact', 'srnet_large',
-    'srnet_student', 'srnet_4k') or the ensemble ('srnet_ensemble' /
-    'ensemble': the tiers that load averaged, compact + RRDB + large, only
+    'srnet_student', 'srnet_4k', 'realesrgan_x2plus') or the ensemble
+    ('srnet_ensemble' / 'ensemble': the tiers that load averaged, compact + RRDB + large, only
     off the shipped files). None, the generic slot, takes the student, then
     the ensemble, then the first of large, compact, RRDB whose architecture
     a configured ``srnet_params_path`` holds (the JAX package's restore
@@ -179,6 +182,9 @@ def resolve_sr_backend(name: str, config,
     (the measured-best shipped tier: student, ensemble, large, compact,
     RRDB), 'srnet' (RRDB), 'srnet_student', 'srnet_large', 'srnet_compact'
     (each progressive neural, falling back to Lanczos without weights),
+    'realesrgan_x2plus' (Real-ESRGAN's published 2x RRDBNet, progressive
+    neural from the weights file ``config.srnet_params_path`` names, which
+    must hold that architecture; Lanczos without one),
     'srnet_ensemble' / 'ensemble' (compact, RRDB and large averaged),
     'srnet_4k' (progressive Lanczos: no 4K finisher ships),
     'progressive_lanczos', 'lanczos' (per block, through the

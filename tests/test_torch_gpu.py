@@ -788,6 +788,52 @@ def test_rrdb_and_ensemble_on_card_match_cpu(name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(135, 240), (540, 960)])  # 1080p's coarsest (odd) and widest
+def test_realesrgan_x2plus_at_published_width_matches_the_benchmark_reference(h, w, tmp_path):
+    """The ``realesrgan_x2plus`` tier (64 features, growth 32, 23 RRDBs) on
+    the benchmark configuration's seeded weights, one call on a stage input
+    of the 1080p loop, against the benchmark's plain float32 reference:
+    rounded outputs within the configuration's limits of ``correct``, and
+    every conv before ``conv_last`` through the fused epilogue (350 a call)."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from elvis_tpu_torch.models.io import load_srnet
+    from elvis_tpu_torch.models.srnet import srnet_upsample_fn
+    from elvis_tpu_torch.utils.trace import counter
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from port_bench.harness import content
+    from port_bench.paths.restore_seeded import seeded_weights, write_weights
+    from port_bench.reference.realesrgan import ReferenceRealESRGAN
+
+    dev = _cuda()
+    cfg = json.loads((root / "port_bench/configs/realesrgan_x2plus_1080p.json").read_text())
+    path = str(tmp_path / "x2.npz")
+    write_weights(path, cfg["arch"], seeded_weights(cfg["arch"], cfg["weights_seed"],
+                                                    cfg["assumed"]))
+    mix = json.loads((root / "port_bench/traffic/segments_1080p_restore.json").read_text())
+    src = content.make_segments(mix["content"], 1, 2, 1080, 1920,
+                                content.generator(2**31 + 3, dev), dev)[0].float()
+    x = torch.nn.functional.interpolate(src.permute(0, 3, 1, 2), size=(h, w), mode="area")
+    x = x.permute(0, 2, 3, 1).contiguous()
+    up = srnet_upsample_fn(load_srnet(path, dev))
+    nets = counter("nets")
+    fused = nets["epilogue.fused"]
+    got = up(x).round()
+    assert nets["epilogue.fused"] == fused + 350
+    want = ReferenceRealESRGAN(path, dev)(x).round()
+    assert got.shape == want.shape == (2, 2 * h, 2 * w, 3)
+    assert float(((want <= 0) | (want >= 255)).float().mean()) < 0.05
+    diff = (got - want).abs()
+    limits = cfg["checks"]["restore_seeded"]["limits"]
+    assert float(diff.mean(dim=(1, 2, 3)).max()) <= limits["frame_mae_lsb"], float(diff.mean())
+    assert float((diff > 4).float().mean()) <= limits["over4_share"]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b", [8, 16, 32])
 def test_roi_files_on_card_match_cpu(b, tmp_path):
     """The ROI writers regridding on the card against the CPU at 1080p: the
