@@ -2,9 +2,9 @@
 ``elvis_tpu.codec.nvc.entropy``).
 
 ``csrc/rangecoder.cpp`` is the JAX package's range coder, byte for byte; it
-is compiled with the host compiler at first use into
-``elvis_tpu_torch/_build/`` (named by a hash of the source) and bound over
-its C interface: flat arrays in, bytes out.
+is compiled with the host compiler at first use by the port's one native
+builder (``elvis_tpu_torch.kernels._build``, library ``nvc_rc``) and bound
+over its C interface: flat arrays in, bytes out.
 
 Each section of a stream records the backend that wrote it. ``decode_*``
 reads both backends, the zlib one too, because it is part of the stream
@@ -16,13 +16,8 @@ and another bitrate, so the port never writes one silently.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
-import time
 import zlib
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -40,32 +35,8 @@ __all__ = [
 BACKEND_NATIVE = 0
 BACKEND_ZLIB = 1
 
-_CSRC = Path(__file__).resolve().parent / "csrc" / "rangecoder.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-# seconds the compiler took in this process (None: the library was found built)
-BUILD_SECONDS: Optional[float] = None
-
-
-def _lib_path() -> Path:
-    digest = hashlib.sha256(_CSRC.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libnvc_rc_{digest}.so"
-
-
-def _build(path: Path) -> None:
-    global BUILD_SECONDS
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.time()
-    proc = subprocess.run(
-        ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", str(tmp), str(_CSRC)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {_CSRC} (rc {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
-    BUILD_SECONDS = time.time() - t0
 
 
 def _load() -> ctypes.CDLL:
@@ -74,14 +45,13 @@ def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
+    from elvis_tpu_torch.kernels import _build
+
     with _lock:
         if _lib is not None:
             return _lib
         try:
-            path = _lib_path()
-            if not path.is_file():
-                _build(path)
-            lib = ctypes.CDLL(str(path))
+            lib = _build.load("nvc_rc")
         except OSError as exc:  # missing source or compiler, unloadable library
             raise RuntimeError(f"the native range coder cannot be built: {exc}") from exc
         u8, i16 = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int16)

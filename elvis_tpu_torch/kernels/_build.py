@@ -1,11 +1,13 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native libraries.
 
-Each source under ``csrc/`` has a plain C interface and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into its own shared library, which is
-loaded with ``ctypes``. Libraries go to ``elvis_tpu_torch/_build/`` (listed
-in ``.gitignore``), named by a hash of their source and of the headers it
-includes from ``csrc/``, and are built at first use; ``build_all`` starts
-one ``nvcc`` per source at once.
+Each source has a plain C interface and is compiled into its own shared
+library, which is loaded with ``ctypes``: the hand-written CUDA kernels
+under ``csrc/`` by ``nvcc`` for Hopper (``sm_90a``), and the NVC codec's
+range coder (``codec/nvc/csrc/rangecoder.cpp``) by the host's ``g++``, so
+that it builds on a machine without the CUDA toolkit. Libraries go to
+``elvis_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
+their source and of the headers it includes beside it, and are built at
+first use; ``build_all`` starts one compiler per source at once.
 """
 
 from __future__ import annotations
@@ -19,23 +21,27 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 __all__ = ["SOURCES", "build_all", "load"]
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE.parent / "_build"
-SOURCES: Dict[str, Path] = {
-    "block_transform": _HERE / "csrc" / "block_transform.cu",
-    "block_transform_batched": _HERE / "csrc" / "block_transform_batched.cu",
-    "conv_epilogue": _HERE / "csrc" / "conv_epilogue.cu",
+NVCC = ("nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX = ("g++", "-O3", "-shared", "-fPIC", "-std=c++17")
+# name -> (source, compiler and its flags)
+SOURCES: Dict[str, Tuple[Path, Tuple[str, ...]]] = {
+    "block_transform": (_HERE / "csrc" / "block_transform.cu", NVCC),
+    "block_transform_batched": (_HERE / "csrc" / "block_transform_batched.cu", NVCC),
+    "conv_epilogue": (_HERE / "csrc" / "conv_epilogue.cu", NVCC),
+    "nvc_rc": (_HERE.parent / "codec" / "nvc" / "csrc" / "rangecoder.cpp", GXX),
 }
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) of each build in this process
+# compiler output of each build in this process (nvcc's: the ptxas report of
+# registers, shared memory and spills)
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -65,7 +71,7 @@ def _lib_path(name: str) -> Path:
     """Library path named by a hash of the source and its own headers: a
     changed header rebuilds every source that includes it."""
     sha = hashlib.sha256()
-    for path in _source_files(SOURCES[name]):
+    for path in _source_files(SOURCES[name][0]):
         sha.update(path.read_bytes())
     digest = sha.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
@@ -73,29 +79,34 @@ def _lib_path(name: str) -> Path:
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile every named source (default: all) whose library is missing,
-    all ``nvcc`` processes started together. Returns seconds per build;
-    raises with the compiler's output if one fails."""
+    all compilers started together. Returns seconds per build; raises with
+    the compiler's output if one fails, and names a missing compiler after
+    the other sources are built."""
     names = list(SOURCES if names is None else names)
     todo = [n for n in names if not _lib_path(n).is_file()]
     if not todo:
         return {}
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
-    procs = {}
+    procs, times, errors = {}, {}, []
     try:
         for n in todo:
+            source, (compiler, *flags) = SOURCES[n]
             tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
-            procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                              stderr=subprocess.STDOUT, text=True))
-        times, errors = {}, []
+            try:
+                cmd = [_nvcc() if compiler == "nvcc" else compiler, *flags, "-o", str(tmp),
+                       str(source)]
+                procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True))
+            except (RuntimeError, OSError) as exc:  # no such compiler
+                errors.append(f"{n}: {exc}")
         for n, (tmp, proc) in procs.items():
             log, _ = proc.communicate()
             times[n] = time.time() - t0
             BUILD_LOGS[n] = log
             if proc.returncode != 0:
-                errors.append(f"nvcc failed for {SOURCES[n]} (rc {proc.returncode}):\n{log}")
+                source, (compiler, *_) = SOURCES[n]
+                errors.append(f"{compiler} failed for {source} (rc {proc.returncode}):\n{log}")
             else:
                 os.replace(tmp, _lib_path(n))
     finally:

@@ -4,13 +4,8 @@
 Every field of the JAX package's ``ElvisConfig``, with the same names,
 defaults and order, so ``to_dict()`` -- which feeds the stage cache's key
 and ``parameters.config`` of ``analysis_results.json`` -- is the same dict.
-Each field is either LIVE (it parameterizes a mechanism of the port), listed
-in ``ABSORBED_FIELDS`` with the reason it has no counterpart, or listed in
-``PENDING_FIELDS`` with the ``ROADMAP.md`` item whose mechanism is not ported
-yet (none is left: the search drivers read ``minimal_figures``).
-``check_ported`` raises ``NotImplementedError`` for a pending field set
-away from its default and for a backend or codec name that is not ported
-yet, so a run fails before it spends time on stage 0.
+Each field is either LIVE (it parameterizes a mechanism of the port) or
+listed in ``ABSORBED_FIELDS`` with the reason it has no counterpart.
 
 The device is not a field: ``run_elvis(config, device=...)`` takes it, so
 the config dict stays the JAX package's.
@@ -24,15 +19,13 @@ import argparse
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Union
 
 __all__ = [
     "ElvisConfig",
     "load_config_from_cli",
     "config_from_dict",
-    "check_ported",
     "ABSORBED_FIELDS",
-    "PENDING_FIELDS",
 ]
 
 # Fields with no mechanism to drive: the JAX package's nine (its reasons),
@@ -63,20 +56,6 @@ ABSORBED_FIELDS = {
     # built once per source into elvis_tpu_torch/_build/ whatever this says)
     "compilation_cache",
 }
-
-# Fields whose mechanism the port does not have yet -> the ROADMAP.md §1
-# item that brings it. Set away from its default, each raises in
-# ``check_ported`` before stage 0.
-PENDING_FIELDS: Dict[str, int] = {}
-
-# item number -> what it brings, for the message; every item is ported
-_ITEMS: Dict[int, str] = {}
-
-# backend and codec names the JAX package knows and the port does not yet:
-# field -> (names, item). Every name is ported; a name neither package
-# knows raises ValueError where its stage resolves it, as in JAX.
-_PENDING_NAMES: Dict[str, Tuple[set, int]] = {}
-
 
 @dataclass
 class ElvisConfig:
@@ -205,26 +184,6 @@ class ElvisConfig:
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
-
-
-def _pending(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: not ported yet (ROADMAP.md §1 item {item}, {_ITEMS[item]})")
-
-
-def check_ported(config: ElvisConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item when the config
-    asks for a mechanism the port does not have yet: a ``PENDING_FIELDS``
-    entry away from its default, or a backend / codec name not ported."""
-    defaults = ElvisConfig()
-    for name, item in PENDING_FIELDS.items():
-        if getattr(config, name) != getattr(defaults, name):
-            raise _pending(f"config field {name}={getattr(config, name)!r}", item)
-    for name, (names, item) in _PENDING_NAMES.items():
-        value = getattr(config, name)
-        for v in ([value] if isinstance(value, str) else value):
-            if v in names:
-                raise _pending(f"{name} entry {v!r}", item)
 
 
 def config_from_dict(data: Dict[str, Any], strict: bool = False) -> ElvisConfig:

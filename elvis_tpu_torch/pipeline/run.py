@@ -40,9 +40,9 @@ tall restore in height tiles over a data x spatial mesh
   ELVIS v2 Dampen        DCT dampening (optional)    inverse filter
   (+ extra rows per sr_backends/deblur_backends/inpaint_backends entries)
 
-Every field of the JAX package's config is ported: ``check_ported`` refuses
-nothing (``minimal_figures`` is read by the search drivers' figure roll-up,
-``elvis_tpu_torch.search``, not by a stage).
+Every field of the JAX package's config is ported (``minimal_figures`` is
+read by the search drivers' figure roll-up, ``elvis_tpu_torch.search``, not
+by a stage).
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ from elvis_tpu_torch.parallel import mesh as _mesh
 from elvis_tpu_torch.parallel.halo import spatial_tile_map_blocks, temporal_map_overlap
 from elvis_tpu_torch.parallel.mesh import make_mesh, resolve_devices, shard_frames
 from elvis_tpu_torch.pipeline.cache import StageCache
-from elvis_tpu_torch.pipeline.config import ElvisConfig, check_ported
+from elvis_tpu_torch.pipeline.config import ElvisConfig
 from elvis_tpu_torch.pipeline.io import load_clip, save_frames_png
 from elvis_tpu_torch.restore import (
     restore_blur_unsharp,
@@ -475,14 +475,12 @@ def _sync(device: torch.device) -> None:
 def run_elvis(config: ElvisConfig, device: "str | torch.device" = "cuda",
               stats: Optional[Dict] = None) -> Dict:
     """Execute the pipeline on ``device``; returns (and writes) the
-    analysis results. Raises ``NotImplementedError`` before stage 0 when
-    the config asks for something not ported yet (``check_ported``).
+    analysis results.
 
     ``stats``, when given, receives what the results' schema has no key
     for: ``"stage_peak_bytes"`` (peak allocated device memory over each
     stage; empty off CUDA) and ``"streams"`` (each encoded branch's
     bitstream bytes)."""
-    check_ported(config)
     dev = resolve_device(device)
     if config.profile_dir:
         from torch.profiler import ProfilerActivity, profile

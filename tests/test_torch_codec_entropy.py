@@ -10,6 +10,7 @@ import pytest
 
 from elvis_tpu.codec.nvc import entropy as je
 from elvis_tpu_torch.codec.nvc import entropy as te
+from elvis_tpu_torch.kernels import _build
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -18,11 +19,30 @@ def test_range_coder_source_is_the_reference_source():
     ours = ROOT / "elvis_tpu_torch/codec/nvc/csrc/rangecoder.cpp"
     theirs = ROOT / "elvis_tpu/codec/nvc/csrc/rangecoder.cpp"
     assert ours.read_bytes() == theirs.read_bytes()
-    assert te._CSRC == ours
+    assert _build.SOURCES["nvc_rc"] == (ours, ("g++", "-O3", "-shared", "-fPIC", "-std=c++17"))
     # built from that source into the port's own build directory
     assert te.native_available()
-    assert te._lib_path().parent == ROOT / "elvis_tpu_torch" / "_build"
-    assert te._lib_path().is_file()
+    assert _build._lib_path("nvc_rc").parent == ROOT / "elvis_tpu_torch" / "_build"
+    assert _build._lib_path("nvc_rc").is_file()
+
+
+def test_range_coder_builds_without_nvcc(tmp_path, monkeypatch):
+    """The one builder compiles the range coder with g++ alone: with no
+    nvcc, building it by name succeeds, and building everything builds it
+    before naming the missing nvcc for the CUDA sources."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    assert set(_build.build_all(["nvc_rc"])) == {"nvc_rc"}
+    assert _build._lib_path("nvc_rc").parent == tmp_path and _build._lib_path("nvc_rc").is_file()
+    _build._lib_path("nvc_rc").unlink()
+    with pytest.raises(RuntimeError, match="nvcc not found") as err:
+        _build.build_all()
+    assert _build._lib_path("nvc_rc").is_file()
+    assert all(name in str(err.value) for name in _build.SOURCES if name != "nvc_rc")
+    assert sorted(p.name for p in tmp_path.iterdir()) == [_build._lib_path("nvc_rc").name]
 
 
 def _coeff_cases(rng):
@@ -76,7 +96,9 @@ def test_encode_raises_when_the_library_cannot_be_built(monkeypatch, tmp_path, r
     """No silent zlib stream: with the source missing (and no library
     loaded) both encoders raise, and so does a decode of a native section."""
     monkeypatch.setattr(te, "_lib", None)
-    monkeypatch.setattr(te, "_CSRC", tmp_path / "missing" / "rangecoder.cpp")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setitem(_build.SOURCES, "nvc_rc",
+                        (tmp_path / "missing" / "rangecoder.cpp", _build.GXX))
     assert not te.native_available()
     with pytest.raises(RuntimeError, match="range coder"):
         te.encode_coeffs(np.zeros((2, 64), np.int16), 64)
@@ -87,7 +109,7 @@ def test_encode_raises_when_the_library_cannot_be_built(monkeypatch, tmp_path, r
     # a source that does not compile raises too, with the compiler's words
     bad = tmp_path / "rangecoder.cpp"
     bad.write_text("this is not C++\n")
-    monkeypatch.setattr(te, "_CSRC", bad)
-    monkeypatch.setattr(te, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setitem(_build.SOURCES, "nvc_rc", (bad, _build.GXX))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         te.encode_bytes(np.zeros(8, np.uint8))

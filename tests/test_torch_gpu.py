@@ -3,7 +3,10 @@ transform kernel in its block and frame layouts, and the batched kernel),
 the NVC codec, the fills and the pipeline on the card against the CPU, the
 halo functions and ``run_elvis`` on logical shards of the card, the
 trainer's steps on the card against the CPU and against themselves, and
-the dense library route of the transform against its kernel.
+the dense library route of the transform against its kernel; then the
+paths at full width (8 frames of 1080p): the main, blur and codec paths,
+``run_elvis`` with every backend, the external encoders, PRESLEY, the
+parallel layer, the trainers, the searches and the evaluators.
 
 They skip where no CUDA device is present. This file imports no JAX, so
 on a machine with a card and no JAX it runs without the repo's conftest:
@@ -16,6 +19,8 @@ data (the JAX package's kernel tolerance). uint8 frames may differ by
 1 LSB where a value lands within that distance of a .5 tie; on random data
 that is rare, and the tests bound the share of such pixels.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -481,7 +486,11 @@ def test_codec_pinned_numbers_on_card():
     qps = torch.arange(52)
     assert torch.equal(tt.qstep_from_qp(qps.to(dev)).cpu(), tt.qstep_from_qp(qps))
     mags = torch.arange(32768, dtype=torch.float32)
-    assert torch.equal(tt._level_bits(mags.to(dev)).cpu(), tt._level_bits(mags))
+    bits = tt._level_bits(mags.to(dev)).cpu()
+    assert torch.equal(bits, tt._level_bits(mags))
+    levels = np.arange(32768, dtype=np.float64)
+    model = np.where(levels > 0, 2.0 * np.ceil(np.log2(levels + 1.0)) + 2.0, 0.05)
+    assert np.array_equal(bits.numpy(), model.astype(np.float32))  # 2*ceil(log2(l+1))+2
 
 
 @pytest.mark.gpu
@@ -599,8 +608,8 @@ def test_temporal_fill_on_card_matches_cpu(hint):
 def test_inpaint_net_on_card_matches_cpu():
     """The shipped InpaintNet (bf16 body, float32 tail) on the card against
     the CPU's bf16 net: only holes change; hole pixels within 1 grey level
-    (max abs; the card read 0.46 on this clip, 0.38 on chip_smoke.py's
-    crop); the residual is real, its mean over the holes above that bound
+    (max abs; the card read 0.46 on this clip, 0.38 on a 256x512 crop of
+    the 1080p default run's shrunk branch); the residual is real, its mean over the holes above that bound
     (5.43 here), and the card's mean error at most 2% of the CPU's mean
     residual (read 0.38%); and the hole PSNR against the clip within 0.05 dB
     (the bf16 bar of the CPU parity tests; the net moves it 0.58 dB from its
@@ -663,7 +672,7 @@ def test_run_elvis_on_card_matches_cpu(tmp_path):
 
 
 # the diffusion restore on the card against the CPU, bf16 on both sides and
-# the same noise, grey levels (as chip_smoke.py phase 8 holds it). The card
+# the same noise, grey levels. The card
 # read max 0.431, mean 0.035 here, with a CPU change of the input of 7.6
 DIFFUSION_MAX_GREY = 1.0
 DIFFUSION_MEAN_GREY = 0.1
@@ -747,7 +756,7 @@ def test_naive_diffusion_on_card_returns_its_input():
 @pytest.mark.gpu
 def test_srnet_large_on_card_matches_cpu():
     """The srnet_large tier: restored PSNR within 0.05 dB (the bound of the
-    main path's crop check in chip_smoke.py)."""
+    main path's crop check, ``test_main_path_at_1080p_on_the_card``)."""
     from elvis_tpu_torch.metrics import masked_psnr
     from elvis_tpu_torch.pipeline import ElvisConfig
     from elvis_tpu_torch.restore.backends import resolve_sr_backend
@@ -768,7 +777,7 @@ def test_srnet_large_on_card_matches_cpu():
 def test_rrdb_and_ensemble_on_card_match_cpu(name):
     """RRDB SRNet and the ensemble (compact + RRDB + large): restored PSNR
     within 0.05 dB of the CPU's, uint8 within 1 LSB on 99.5% of pixels (the
-    bounds of the SR crop checks in chip_smoke.py)."""
+    PSNR bound of ``test_rrdb_and_ensemble_on_a_1080p_crop_match_cpu``)."""
     from elvis_tpu_torch.metrics import masked_psnr
     from elvis_tpu_torch.pipeline import ElvisConfig
     from elvis_tpu_torch.restore.backends import resolve_sr_backend
@@ -837,8 +846,8 @@ def test_realesrgan_x2plus_at_published_width_matches_the_benchmark_reference(h,
 @pytest.mark.parametrize("b", [8, 16, 32])
 def test_roi_files_on_card_match_cpu(b, tmp_path):
     """The ROI writers regridding on the card against the CPU at 1080p: the
-    same CTU and tokens, qpfile values within 1e-4, kvazaar bytes equal, the
-    SVT-AV1 segments within one level."""
+    same CTU (16 at b=8), lines and tokens, qpfile values within 1e-4,
+    kvazaar bytes equal, the SVT-AV1 segments within one level."""
     from elvis_tpu_torch.codec import roi
 
     dev = _cuda()
@@ -854,6 +863,10 @@ def test_roi_files_on_card_match_cpu(b, tmp_path):
         files[str(where)] = (ctu, q.read_text(), k.read_bytes(), s.read_text())
     cpu, card = files["cpu"], files[str(dev)]
     assert card[0] == cpu[0] and card[2] == cpu[2]
+    assert b != 8 or cpu[0] == 16  # the CTU at the pipeline's block size
+    q_cpu, q_card = cpu[1].splitlines(), card[1].splitlines()
+    assert len(q_cpu) == len(q_card)
+    assert all(len(a.split()) == len(c.split()) for a, c in zip(q_cpu, q_card))
     for a, c in zip(cpu[1].split(), card[1].split()):
         if "," in a:
             (ka, va), (kc, vc) = a.rsplit(",", 1), c.rsplit(",", 1)
@@ -1073,3 +1086,1050 @@ def test_diffusion_trainer_launches_the_transform_kernel(monkeypatch):
     tr = train_diffusion(3, None, batch=4, patch=32, photo_fraction=0.0, device=dev,
                          log_every=100)
     assert bt.LAUNCHES["block_transform"] == before + 3 and len(tr.losses) == 3
+
+
+# --- the paths at full width: 8 frames of 1080p --------------------------
+#
+# The gates the paths' properties need at the size users run them: launch
+# counts, the stage cache, the rows of whole runs, and what a clip's own
+# pixels decide (levels, rounds, PSNR floors). Timing them is the
+# benchmark's job (port_bench/run.py).
+
+N, H, W, B = 8, 1080, 1920, 8
+STUDENT_TRUNK_CONVS = 8  # srnet_student: head, six convs, up; each one conv_epilogue launch
+# realesrgan_x2plus: 23 RRDBs x 3 dense blocks x 5 convs, conv_first, conv_body,
+# conv_up1, conv_up2, conv_hr; conv_last runs in float32 without it
+REALESRGAN_TRUNK_CONVS = 23 * 3 * 5 + 5
+CROP = (256, 512)  # centre crops of the 1080p clip held to the CPU
+SR_CROP = (128, 256)  # the RRDB tier and the ensemble: a CPU pass of a larger crop takes minutes
+PIPELINE_ROWS = ("Baseline", "PRESLEY QP", "ELVIS CV2", "ELVIS ProPainter", "ELVIS E2FGVI",
+                 "PRESLEY RealESRGAN", "PRESLEY InstantIR", "PRESLEY Lanczos", "PRESLEY Unsharp")
+ROW_TOL = {"bitrate_rel": 0.01, "psnr_mean": 0.1, "ssim_mean": 2e-3, "lpips_mean": 1e-3}
+
+
+def _clip(device, n=N, h=H, w=W):
+    """bench.py's structured clip (moving gradients), grey in RGB, plus
+    N(0, 2) noise from a generator seeded 0; uint8 (n, h, w, 3)."""
+    t = torch.arange(n, device=device, dtype=torch.float32)[:, None, None]
+    yy = torch.arange(h, device=device, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(w, device=device, dtype=torch.float32)[None, None, :]
+    grey = torch.clamp(128 + 80 * torch.sin(2 * np.pi * (xx + 40 * t) / 300)
+                       * torch.cos(2 * np.pi * yy / 200), 0, 255)
+    gen = torch.Generator(device=device).manual_seed(0)
+    noise = torch.randn((n, h, w, 3), generator=gen, device=device) * 2.0
+    return torch.clamp(torch.round(grey[..., None] + noise), 0, 255).to(torch.uint8)
+
+
+def _score(frames, cfg):
+    """Removability scores and the foreground (saliency >= 0.5), as the
+    pipeline's scoring stage makes them."""
+    from elvis_tpu_torch.scoring import (get_saliency_fn, removability_scores,
+                                         saliency_to_block_mask, spatial_temporal_complexity)
+
+    cx = spatial_temporal_complexity(frames, cfg.block_size)
+    sal = get_saliency_fn(cfg.saliency_backend)(frames)
+    scores = removability_scores(cx.SC, cx.TC, saliency_to_block_mask(sal, cfg.block_size),
+                                 alpha=cfg.removability_alpha,
+                                 smoothing_beta=cfg.removability_smoothing_beta)
+    return scores, sal >= 0.5
+
+
+def _centre(shape, rows, cols):
+    """Pixel and block slices of a centre crop on whole 2x2-block steps."""
+    y0 = (shape[1] // 2 - rows // 2) // (2 * B) * (2 * B)
+    x0 = (shape[2] // 2 - cols // 2) // (2 * B) * (2 * B)
+    return ((slice(y0, y0 + rows), slice(x0, x0 + cols)),
+            (slice(y0 // B, (y0 + rows) // B), slice(x0 // B, (x0 + cols) // B)))
+
+
+def _transforms(fn):
+    """``fn()`` and the transform kernel launches it made."""
+    from elvis_tpu_torch.kernels import LAUNCHES
+
+    before = LAUNCHES["block_transform"]
+    out = fn()
+    return out, LAUNCHES["block_transform"] - before
+
+
+def _rows(results):
+    return [k for k, v in results.items() if isinstance(v, dict) and "foreground" in v]
+
+
+def _rows_apart(a, b, relative=False):
+    """Largest difference of each metric between two runs' rows: relative
+    for the bitrate, absolute (or relative) for the rest."""
+    worst = {}
+    for row in _rows(b):
+        worst["bitrate_rel"] = max(worst.get("bitrate_rel", 0.0),
+                                   abs(a[row]["bitrate_mbps"] - b[row]["bitrate_mbps"])
+                                   / b[row]["bitrate_mbps"])
+        for region in ("foreground", "background"):
+            for key in ("psnr_mean", "ssim_mean", "mse_mean", "lpips_mean", "fvmd"):
+                d = abs(a[row][region][key] - b[row][region][key])
+                if relative:
+                    d /= max(abs(b[row][region][key]), 1e-12)
+                worst[key] = max(worst.get(key, 0.0), d)
+    return worst
+
+
+def _rows_finite(run):
+    for row in _rows(run):
+        for region in ("foreground", "background"):
+            for key in ("psnr_mean", "ssim_mean", "mse_mean", "lpips_mean", "fvmd"):
+                assert np.isfinite(run[row][region][key]), (row, region, key)
+
+
+def _logical_mesh(k, axes=(("data", -1),)):
+    """A mesh over ``k`` logical shards of cuda:0: the port's device list is
+    replaced while the mesh is made."""
+    from elvis_tpu_torch.parallel import make_mesh
+    from elvis_tpu_torch.parallel import mesh as pmesh
+
+    real = pmesh.devices
+    pmesh.devices = lambda device_type="cuda": [torch.device("cuda:0")] * k
+    try:
+        return make_mesh(axes, device_type="cuda")
+    finally:
+        pmesh.devices = real
+
+
+@pytest.mark.gpu
+def test_main_path_at_1080p_on_the_card():
+    """Scoring, ``adaptive_downsample`` and the default SR slot (the shipped
+    ``srnet_student``) on the 1080p clip: one transform launch, one fused
+    ``conv_epilogue`` launch per trunk conv and stage, finite metrics, the
+    restore no more than 1 dB under the degraded frames; on a 2x64x96 crop
+    the card's scores within 1e-4 of the CPU's, the same levels, the
+    degraded frames within 1 LSB and the restored PSNR within 0.05 dB."""
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.kernels import LAUNCHES
+    from elvis_tpu_torch.metrics import masked_psnr, masked_ssim
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+    from elvis_tpu_torch.utils.trace import counter
+
+    dev = _cuda()
+    cfg = ElvisConfig()
+    assert cfg.block_size == B
+    frames = _clip(dev)
+    restore, prov = resolve_sr_backend(cfg.sr_backends[0], cfg, device=dev)
+    assert prov.startswith("progressive_neural[srnet_student:"), prov
+    nets = counter("nets")
+    LAUNCHES.clear()
+    nets.clear()
+    scores, fg = _score(frames, cfg)
+    degraded, levels = adaptive_downsample(frames, scores, B)
+    restored = restore(degraded, levels, B)
+    metrics = [masked_psnr(frames, degraded), masked_psnr(frames, restored),
+               masked_psnr(frames, restored, fg), masked_ssim(frames, restored)]
+    launches, net_convs = dict(LAUNCHES), dict(nets)
+    assert launches.get("block_transform", 0) == 1, launches
+    assert restored.shape == degraded.shape == frames.shape
+    assert restored.dtype == degraded.dtype == torch.uint8
+    max_level = int(levels.max())
+    assert max_level >= 1
+    want = STUDENT_TRUNK_CONVS * max_level
+    assert launches.get("conv_epilogue", 0) == want, launches
+    assert net_convs == {"epilogue.fused": want}, net_convs
+    assert all(bool(torch.isfinite(v).all()) for v in metrics)
+    assert metrics[1].mean().item() > metrics[0].mean().item() - 1.0
+
+    crop = frames[:2, :64, :96].contiguous()
+    s_card, _ = _score(crop, cfg)
+    s_cpu, _ = _score(crop.cpu(), cfg)
+    assert (s_card.cpu() - s_cpu).abs().max().item() <= 1e-4
+    cpu_restore, _ = resolve_sr_backend(cfg.sr_backends[0], cfg, device="cpu")
+    d_card, l_card = adaptive_downsample(crop, s_card, B)
+    d_cpu, l_cpu = adaptive_downsample(crop.cpu(), s_card.cpu(), B)
+    assert torch.equal(l_card.cpu(), l_cpu)
+    assert (d_card.cpu().int() - d_cpu.int()).abs().max().item() <= 1
+    p_card = masked_psnr(crop.cpu(), restore(d_card, l_card, B).cpu())
+    p_cpu = masked_psnr(crop.cpu(), cpu_restore(d_cpu, l_cpu, B))
+    assert (p_card - p_cpu).abs().max().item() <= 0.05
+
+
+@pytest.mark.gpu
+def test_realesrgan_x2plus_tier_fuses_every_conv_of_a_1080p_stage(tmp_path):
+    """The pinned ``realesrgan_x2plus`` tier through ``resolve_sr_backend``
+    on PyTorch's default init written as a weights file, over one 2x stage
+    of the 1080p clip (every block at level 1): uint8 out, and one fused
+    ``conv_epilogue`` launch for each of its 350 convs before ``conv_last``."""
+    from elvis_tpu_torch.kernels import LAUNCHES
+    from elvis_tpu_torch.models import io as tio
+    from elvis_tpu_torch.models.srnet import RealESRGANx2
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+    from elvis_tpu_torch.utils.trace import counter
+
+    dev = _cuda()
+    torch.manual_seed(0)
+    path = str(tmp_path / "realesrgan_x2plus.npz")
+    tio.write_npz(path, RealESRGANx2(dtype=torch.float32).state_dict(),
+                  {"arch": tio.REALESRGAN_ARCH, "num_feat": 64, "num_grow_ch": 32,
+                   "num_block": 23, "scale": 2})
+    restore, prov = resolve_sr_backend("realesrgan_x2plus",
+                                       ElvisConfig(srnet_params_path=path), device=dev)
+    assert prov.startswith("progressive_neural[realesrgan_x2plus:"), prov
+    frames = _clip(dev)
+    levels = torch.ones((N, H // B, W // B), dtype=torch.int32, device=dev)
+    nets = counter("nets")
+    LAUNCHES.clear()
+    nets.clear()
+    restored = restore(frames, levels, B)
+    torch.cuda.synchronize()
+    assert restored.shape == frames.shape and restored.dtype == torch.uint8
+    assert LAUNCHES.get("conv_epilogue", 0) == REALESRGAN_TRUNK_CONVS, dict(LAUNCHES)
+    assert dict(nets) == {"epilogue.fused": REALESRGAN_TRUNK_CONVS}, dict(nets)
+
+
+@pytest.mark.gpu
+def test_blur_path_at_1080p_on_the_card():
+    """The blur branch and the classical rows on the 1080p clip: the default
+    deblur slot is the shipped deblur net and ``unsharp`` resolves to
+    itself; one transform launch for the blur, none for the net, one each
+    for the unsharp and the Lanczos rows; some blocks blurred and some left
+    at 0 rounds; every row uint8 with finite metrics above 25 dB (sharpening
+    a noisy clip may lose PSNR against the blurred frames, a broken restorer
+    loses tens of dB). On a 2x64x96 crop the net on the card against the
+    CPU: in float32 within 1 LSB and 0.01 dB a frame; in its default bf16
+    body within 0.25 dB a frame (cuDNN and the CPU kernels round the conv
+    sums at different places, see tests/test_torch_blur_slice.py)."""
+    from elvis_tpu_torch.degrade import adaptive_blur, adaptive_downsample
+    from elvis_tpu_torch.metrics import masked_psnr, masked_ssim
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore import restore_downsample_lanczos
+    from elvis_tpu_torch.restore.backends import resolve_deblur_backend
+
+    dev = _cuda()
+    cfg = ElvisConfig()
+    frames = _clip(dev)
+    scores, fg = _score(frames, cfg)
+    degraded, levels = adaptive_downsample(frames, scores, B)
+    deblur, prov = resolve_deblur_backend(cfg.deblur_backends[0], cfg, device=dev)
+    assert prov.startswith("deblur_net:") and prov.endswith("deblur.npz"), prov
+    unsharp, prov_u = resolve_deblur_backend("unsharp", cfg, device=dev)
+    assert prov_u == "unsharp"
+    (blurred, rounds), n_blur = _transforms(
+        lambda: adaptive_blur(frames, scores, B, cfg.gaussian_max_rounds))
+    out, counts = {}, [n_blur]
+    for row, fn in (("deblur_net", lambda: deblur(blurred, rounds, B)),
+                    ("unsharp", lambda: unsharp(blurred, rounds, B)),
+                    ("lanczos", lambda: restore_downsample_lanczos(degraded, levels, B))):
+        out[row], n = _transforms(fn)
+        counts.append(n)
+    assert counts == [1, 0, 1, 1]
+    assert int(rounds.max()) >= 1 and bool((rounds == 0).any())
+    for row, frames_out in out.items():
+        assert frames_out.shape == frames.shape and frames_out.dtype == torch.uint8, row
+    for got in (blurred, degraded):
+        assert bool(torch.isfinite(masked_psnr(frames, got)).all())
+        assert bool(torch.isfinite(masked_psnr(frames, got, fg)).all())
+    for row, got in out.items():
+        psnr = masked_psnr(frames, got)
+        for v in (psnr, masked_psnr(frames, got, fg), masked_ssim(frames, got)):
+            assert bool(torch.isfinite(v).all()), row
+        assert psnr.mean().item() > 25.0, row
+
+    crop = frames[:2, :64, :96].contiguous()
+    s_card, _ = _score(crop, cfg)
+    b_card, r_card = adaptive_blur(crop, s_card, B, cfg.gaussian_max_rounds)
+    _, r_cpu = adaptive_blur(crop.cpu(), s_card.cpu(), B, cfg.gaussian_max_rounds)
+    cpu_deblur, _ = resolve_deblur_backend(cfg.deblur_backends[0], cfg, device="cpu")
+    for dtype, tol_db in ((torch.bfloat16, 0.25), (torch.float32, 0.01)):
+        deblur.net.dtype = cpu_deblur.net.dtype = dtype
+        n_card, n_cpu = deblur(b_card, r_card, B).cpu(), cpu_deblur(b_card.cpu(), r_cpu, B)
+        p_err = (masked_psnr(crop.cpu(), n_card) - masked_psnr(crop.cpu(), n_cpu)).abs().max()
+        assert p_err.item() <= tol_db, dtype
+        lsb = (n_card.int() - n_cpu.int()).abs().max().item()
+        assert dtype != torch.float32 or lsb <= 1, lsb
+
+
+@pytest.mark.gpu
+def test_codec_path_at_1080p_on_the_card(tmp_path):
+    """The main path through the NVC codec as the pipeline's downsample
+    branch runs it, on the 1080p clip at the default target bitrate (gop
+    30), and the baseline row (the clip at the same target): one transform
+    launch; every section of the row's stream, the baseline's and the video
+    sidecar's written by the native range coder; the npz sidecar brings the
+    levels back, the video sidecar (lossy by design) uint8 maps of their
+    shape; the header's size; finite metrics, decoded rows above 25 dB, the
+    restore no more than 1 dB under the decoded frames; each stream within
+    half of the target unless the rate model ran out of QPs (0 or 51)."""
+    from elvis_tpu_torch.codec import calculate_target_bitrate, sidecar
+    from elvis_tpu_torch.codec.dispatch import make_pipeline_codec
+    from elvis_tpu_torch.codec.nvc import codec as nvc
+    from elvis_tpu_torch.codec.nvc import entropy
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.metrics import masked_psnr, masked_ssim
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+
+    dev = _cuda()
+    cfg = ElvisConfig()
+    frames = _clip(dev)
+    fps, gop, duration = 30.0, 30, N / 30.0
+    target = cfg.target_bitrate_override or calculate_target_bitrate(W, H, fps,
+                                                                     cfg.quality_factor)
+    codec = make_pipeline_codec(cfg.codec, "", W, H, quality=cfg.quality_preset,
+                                nvc_b_frames=cfg.nvc_b_frames, nvc_me_radius=cfg.nvc_me_radius,
+                                nvc_multi_ref=cfg.nvc_multi_ref, nvc_deblock=cfg.nvc_deblock,
+                                nvc_intra_pred=cfg.nvc_intra_pred, device=dev)
+    restore, _ = resolve_sr_backend(cfg.sr_backends[0], cfg, device=dev)
+    enc_kw = dict(target_bitrate=target, framerate=fps, gop=gop)
+
+    def row():
+        scores, fg = _score(frames, cfg)
+        degraded, levels = adaptive_downsample(frames, scores, B)
+        return fg, degraded, levels, codec.encode(degraded, **enc_kw)
+
+    (fg, degraded, levels, stream), n = _transforms(row)
+    assert n == 1
+    decoded = codec.decode(stream)
+    levels_np = levels.cpu().numpy()
+    npz, nvsv = str(tmp_path / "maps.npz"), str(tmp_path / "maps.nvsv")
+    sidecar.save_strength_maps_npz(levels_np, npz)
+    maps_npz = sidecar.load_strength_maps_npz(npz)
+    sidecar.save_strength_maps_video(levels_np, nvsv, framerate=fps,
+                                     target_bitrate=cfg.strength_maps_target_bitrate, device=dev)
+    maps_video = sidecar.load_strength_maps_video(nvsv, device=dev)
+    maps = maps_npz if cfg.strength_maps_use_npz else maps_video
+    restored = restore(decoded, torch.as_tensor(maps.astype(np.int32), device=dev), B)
+    base_stream = codec.encode(frames, **enc_kw)
+    base_decoded = codec.decode(base_stream)
+
+    with open(nvsv, "rb") as f:
+        sidecar_stream = f.read()[12:]
+    for s in (stream, base_stream, sidecar_stream):
+        assert all(b == entropy.BACKEND_NATIVE for b in nvc.section_backends(s))
+    assert decoded.shape == frames.shape and decoded.dtype == torch.uint8 and decoded.is_cuda
+    assert restored.shape == frames.shape and restored.dtype == torch.uint8
+    assert np.array_equal(maps_npz, levels_np)
+    assert maps_video.shape == levels_np.shape and maps_video.dtype == np.uint8
+    info, base_info = codec._codec.probe(stream), codec._codec.probe(base_stream)
+    assert (info.width, info.height, info.num_frames) == (W, H, N)
+    psnr = {}
+    for name, got in (("decoded", decoded), ("restored", restored), ("baseline", base_decoded)):
+        vals = (masked_psnr(frames, got), masked_psnr(frames, got, fg), masked_ssim(frames, got))
+        assert all(bool(torch.isfinite(v).all()) for v in vals), name
+        psnr[name] = vals[0].mean().item()
+    assert bool(torch.isfinite(masked_psnr(frames, degraded)).all())
+    assert psnr["decoded"] > 25.0 and psnr["baseline"] > 25.0
+    assert psnr["restored"] > psnr["decoded"] - 1.0
+    for size, q in ((len(stream), info.base_qp), (len(base_stream), base_info.base_qp)):
+        assert q in (0, 51) or 0.5 <= size * 8 / (target * duration) <= 1.5, (size, q)
+
+
+@pytest.mark.gpu
+def test_codec_at_1080p_repeats_and_chunks_byte_for_byte():
+    """An encode of the 1080p clip at QP 32 (gop 30, the default flags): the
+    device half's levels, modes and vectors come back through the stream
+    unchanged; the same encode twice gives the same bytes and frames; the
+    chunked encode (4 frames a segment) the same bytes. On a 2x128x192 crop
+    the card's stream decoded on the card and the CPU's decoded on the CPU
+    are within 0.05 dB."""
+    from elvis_tpu_torch.codec.nvc import codec as nvc
+    from elvis_tpu_torch.metrics import masked_psnr
+    from elvis_tpu_torch.pipeline import ElvisConfig
+
+    dev = _cuda()
+    cfg = ElvisConfig()
+    frames = _clip(dev)
+    fps, gop, qp = 30.0, 30, 32
+    pad = nvc._pad_to(frames, nvc._PAD)
+    hp, wp = pad.shape[1:3]
+    qp_map = nvc._qp_maps(N, hp // 8, wp // 8, qp, None)
+    qp_y, qp_c = (torch.as_tensor(q, device=dev) for q in (qp_map, nvc._chroma_qp(qp_map)))
+    planes_dev, _ = nvc._encode_planes(pad, qp_y, qp_c, gop, cfg.nvc_me_radius, 1, True,
+                                       multi_ref=cfg.nvc_multi_ref, deblock=cfg.nvc_deblock,
+                                       intra_pred=cfg.nvc_intra_pred)
+    planes = nvc._to_host(planes_dev)
+    stream = nvc.write_stream(planes, width=W, height=H, qp=qp, framerate=fps, gop=gop,
+                              deblock=cfg.nvc_deblock)
+    for a, b in zip(planes, nvc.read_stream(stream)[2]):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    flags = dict(me_radius=cfg.nvc_me_radius, multi_ref=cfg.nvc_multi_ref,
+                 deblock=cfg.nvc_deblock, intra_pred=cfg.nvc_intra_pred)
+    again = nvc.encode(frames, qp=qp, framerate=fps, gop=gop, **flags)
+    assert again == stream
+    assert torch.equal(nvc.decode(again, device=dev)[0], nvc.decode(stream, device=dev)[0])
+    assert nvc.encode(frames, qp=qp, framerate=fps, gop=gop, chunk_frames=4, **flags) == stream
+
+    crop = frames[:2, :128, :192].contiguous()
+    s_card = nvc.encode(crop, qp=qp, framerate=fps, gop=gop)
+    s_cpu = nvc.encode(crop.cpu(), qp=qp, framerate=fps, gop=gop)
+    p_card = masked_psnr(crop.cpu(), nvc.decode(s_card, device=dev)[0].cpu()).mean().item()
+    p_cpu = masked_psnr(crop.cpu(), nvc.decode(s_cpu, device="cpu")[0]).mean().item()
+    assert abs(p_card - p_cpu) <= 0.05
+
+
+@pytest.fixture(scope="module")
+def default_run_1080p(tmp_path_factory):
+    """``run_elvis`` with the default config on an 8-frame 1080p synthetic
+    clip (what ``python -m elvis_tpu_torch.cli`` runs), then again on the
+    same directory: the directory, the first run's results, stats and
+    transform launches, and the second run's results."""
+    from elvis_tpu_torch.pipeline import ElvisConfig, run_elvis
+
+    _cuda()
+    exp = tmp_path_factory.mktemp("default_1080p")
+    cfg = ElvisConfig(reference_video=f"synthetic://moving?frames={N}&fps=30", width=W,
+                      height=H, experiment_dir=str(exp))
+    stats = {}
+    first, launches = _transforms(lambda: run_elvis(cfg, device="cuda", stats=stats))
+    return exp, first, stats, launches, run_elvis(cfg, device="cuda")
+
+
+@pytest.mark.gpu
+def test_default_run_at_1080p_on_the_card(default_run_1080p):
+    """The nine rows, each with bits and finite metrics, the JSON's keys, the
+    sidecars and one saliency mask a frame; the ProPainter and E2FGVI rows'
+    fills read the motion hint and have their stage timers and peaks; one
+    transform launch per degrade or classical stage (downsample, blur,
+    Lanczos, unsharp); the second run takes every stage from the cache and
+    gives the same rows (the bitrate equal, each metric within 1e-4
+    relative: the classical rows and the evaluation run again)."""
+    import json
+
+    exp, first, stats, launches, second = default_run_1080p
+    for rel in ("shrink_masks_8.npz", "maps/downsample_maps.npz", "maps/gaussian_maps.npz"):
+        assert (exp / rel).is_file(), rel
+    assert len(list((exp / "maps" / "saliency_masks").iterdir())) == N
+    for stage in ("ProPainter Inpainting", "E2FGVI Inpainting"):
+        assert stage in first["execution_times_seconds"] and stage in stats["stage_peak_bytes"]
+    provs = first["parameters"]["derived"]["backends"]
+    assert all(provs[k].endswith("+motion_hint") for k in PIPELINE_ROWS[3:5]), provs
+    assert launches == 4
+    written = json.loads((exp / "analysis_results.json").read_text())
+    assert set(written) >= {"execution_times_seconds", "video_name", "video_length_seconds",
+                            "video_framerate", "video_resolution", "block_size",
+                            "target_bitrate_bps", "parameters", "experiment_dir",
+                            "analysis_results_path"}
+    assert _rows(first) == list(PIPELINE_ROWS)
+    assert all(first[row]["bitrate_mbps"] > 0 for row in PIPELINE_ROWS)
+    _rows_finite(first)
+    assert second["stage_cache"] == {"hits": [
+        "scoring", "baseline_encode", "shrink_encode", "roi_encode", "downsample_encode",
+        "gaussian_encode", "inpaint_diffusion", "inpaint_temporal", "inpaint_neural",
+        "sr_realesrgan", "deblur_deblur_net"], "misses": []}
+    apart = _rows_apart(second, first, relative=True)
+    assert apart["bitrate_rel"] == 0.0 and all(v <= 1e-4 for v in apart.values()), apart
+
+
+@pytest.mark.gpu
+def test_fills_at_1080p_on_the_shrunk_branch(default_run_1080p):
+    """The shrunk branch's decoded and stretched frames of the default run,
+    with the removal sidecar's motion hint: the temporal fill (with the hint
+    and without), the E2FGVI seed and the net's ``post`` (as stage 8 drives
+    it, in height tiles, and in one call) give finite frames of their shape,
+    and the temporal fill keeps the known pixels. The temporal fill (window
+    1, overlap 2) over 2 and 4 logical shards against one call: known
+    pixels bit-equal, at least 99.5% of hole pixels within 1 LSB (the
+    scatter adds with float atomics), the last frame within 1 LSB (the
+    hint's field has a zero-motion halo edge)."""
+    from elvis_tpu_torch.codec.nvc.codec import decode
+    from elvis_tpu_torch.codec.sidecar import load_removal_masks_npz
+    from elvis_tpu_torch.degrade.removal import stretch_frames
+    from elvis_tpu_torch.ops.motion import motion_field_from_hint
+    from elvis_tpu_torch.parallel import temporal_map_overlap
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.pipeline.run import _apply_temporal, _carry_tiling
+    from elvis_tpu_torch.restore.backends import resolve_inpaint_backend
+    from elvis_tpu_torch.restore.inpaint import restore_removal_temporal
+
+    exp, _, stats, _, _ = default_run_1080p
+    masks, gmv, mdev = load_removal_masks_npz(str(exp / "shrink_masks_8.npz"), with_motion=True)
+    assert gmv is not None and mdev is not None
+    mask = torch.as_tensor(masks.astype("int8"), device="cuda")
+    stretched = stretch_frames(decode(stats["streams"]["shrunk"], device="cuda")[0], mask, B)
+    field = motion_field_from_hint(torch.as_tensor(gmv, device="cuda"),
+                                   torch.as_tensor(mdev, device="cuda"), H // B, W // B)
+    hole = mask.bool().repeat_interleave(B, 1).repeat_interleave(B, 2)
+    temporal, _ = resolve_inpaint_backend("temporal", ElvisConfig(), device="cuda")
+    neural, _ = resolve_inpaint_backend("neural", ElvisConfig(), device="cuda")
+    post = neural.split.post
+    seeded = neural.split(stretched, mask, B, mv=field)
+    staged = _carry_tiling(lambda f, m: post(f, m, B), post)
+    outs = {"temporal, motion hint": temporal(stretched, mask, B, mv=field),
+            "temporal, estimated motion": temporal(stretched, mask, B),
+            "E2FGVI seed": seeded,
+            "net post, as stage 8": _apply_temporal(staged, (seeded, mask),
+                                                    overlap=post.temporal_overlap),
+            "net post, one call": post(seeded, mask, B)}
+    for label, r in outs.items():
+        assert r.shape == stretched.shape and bool(torch.isfinite(r.float()).all()), label
+    for label in ("temporal, motion hint", "temporal, estimated motion"):
+        assert torch.equal(outs[label][~hole], stretched[~hole]), label
+
+    for arrays, call, zero_edge in (
+            ((stretched, mask, field),
+             lambda f, m, mv: restore_removal_temporal(f, m, B, window=1, motion_field=mv),
+             (False, False, True)),
+            ((stretched, mask), lambda f, m: restore_removal_temporal(f, m, B, window=1), ())):
+        whole = call(*arrays)
+        for k in (2, 4):
+            got = temporal_map_overlap(call, arrays, _logical_mesh(k), overlap=2,
+                                       zero_edge=zero_edge)
+            d = (got[hole].int() - whole[hole].int()).abs()
+            assert torch.equal(got[~hole], whole[~hole]), (k, len(arrays))
+            assert float((d <= 1).float().mean()) >= 0.995, (k, len(arrays))
+            assert int((got[-1].int() - whole[-1].int()).abs().max()) <= 1, (k, len(arrays))
+
+
+@pytest.mark.gpu
+def test_sharded_runs_at_1080p_match_the_default_run(default_run_1080p, logical_card,
+                                                     tmp_path):
+    """``run_elvis`` at the default run's size with ``realesrgan_devices=[0]``
+    and ``spatial_devices=2`` on the one card (no mesh: four transform
+    launches), then over a logical 2-shard data mesh (six: downsample and
+    blur once, Lanczos and unsharp once a shard): the default run's rows
+    within the pipeline's row tolerances (bitrate 1%, PSNR 0.1 dB, SSIM 2e-3, LPIPS
+    1e-3)."""
+    from elvis_tpu_torch.pipeline import ElvisConfig, run_elvis
+
+    _, default, _, _, _ = default_run_1080p
+    kw = dict(reference_video=f"synthetic://moving?frames={N}&fps=30", width=W, height=H)
+    single, launches = _transforms(lambda: run_elvis(ElvisConfig(
+        experiment_dir=str(tmp_path / "single"), realesrgan_devices=[0], spatial_devices=2,
+        **kw), device="cuda"))
+    apart = _rows_apart(single, default)
+    assert _rows(single) == list(PIPELINE_ROWS) and all(apart[k] <= v for k, v in
+                                                         ROW_TOL.items()), apart
+    assert launches == 4
+    logical_card(2)
+    sharded, launches = _transforms(lambda: run_elvis(ElvisConfig(
+        experiment_dir=str(tmp_path / "sharded"), **kw), device="cuda"))
+    apart = _rows_apart(sharded, default)
+    assert _rows(sharded) == list(PIPELINE_ROWS)
+    assert all(apart[k] <= v for k, v in ROW_TOL.items()), apart
+    assert launches == 6
+
+
+@pytest.mark.gpu
+def test_every_backend_in_one_run_at_1080p(tmp_path):
+    """``run_elvis`` at 8x1080p with every remaining SR, deblur and saliency
+    name whose weights ship, and the DCT-dampen branch: eighteen rows with
+    finite metrics, the dampen row with bits and its sidecar written, no
+    out-of-memory fallback, six transform launches (two degrades,
+    'lanczos', 'hybrid', two classical rows). Each of those restorers alone
+    on the 1080p clip, as its stage drives it, gives finite values."""
+    import warnings
+
+    from elvis_tpu_torch.degrade import adaptive_blur, adaptive_downsample, dct_dampen
+    from elvis_tpu_torch.pipeline import ElvisConfig, run_elvis
+    from elvis_tpu_torch.pipeline.run import _apply_framewise, _carry_tiling
+    from elvis_tpu_torch.restore import RestoreFallbackWarning, restore_dct_dampen_inverse
+    from elvis_tpu_torch.restore.backends import resolve_deblur_backend, resolve_sr_backend
+    from elvis_tpu_torch.scoring import get_saliency_fn
+
+    dev = _cuda()
+    names = dict(sr_backends=["realesrgan", "srnet_large", "srnet_4k", "lanczos", "hybrid",
+                              "level_seq", "naive_sr"],
+                 deblur_backends=["deblur_net", "diffusion", "naive_diffusion"],
+                 enable_dct_dampen=True, saliency_backend="neural")
+    cfg = ElvisConfig(reference_video=f"synthetic://moving?frames={N}&fps=30", width=W,
+                      height=H, experiment_dir=str(tmp_path), **names)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run, launches = _transforms(lambda: run_elvis(cfg, device="cuda"))
+    assert (tmp_path / "maps" / "dampen_maps.npz").is_file()
+    assert not [w for w in caught if issubclass(w.category, RestoreFallbackWarning)]
+    assert launches == 6
+    assert _rows(run) == ["Baseline", "PRESLEY QP", "ELVIS v2 Dampen", "ELVIS CV2",
+                          "ELVIS ProPainter", "ELVIS E2FGVI", "PRESLEY RealESRGAN",
+                          *(f"PRESLEY SR {n}" for n in names["sr_backends"][1:]),
+                          "PRESLEY InstantIR",
+                          *(f"PRESLEY Deblur {n}" for n in names["deblur_backends"][1:]),
+                          "PRESLEY Lanczos", "PRESLEY Unsharp"]
+    _rows_finite(run)
+    assert run["ELVIS v2 Dampen"]["bitrate_mbps"] > 0
+
+    base = ElvisConfig()
+    clip = _clip(dev)
+    scores, _ = _score(clip, base)
+    blurred, blur_lv = adaptive_blur(clip, scores, B, base.gaussian_max_rounds)
+    down, down_lv = adaptive_downsample(clip, scores, B)
+    damped, damp_lv = dct_dampen(clip, scores, B)
+
+    def staged(fn, f, m):
+        return _apply_framewise(_carry_tiling(lambda a, b: fn(a, b, B), fn), f, m)
+
+    diffusion, _ = resolve_deblur_backend("diffusion", base, device="cuda")
+    outs = [staged(diffusion, blurred, blur_lv), get_saliency_fn("neural")(clip), damped,
+            restore_dct_dampen_inverse(damped, damp_lv, B)]
+    for n in ("srnet_large", "level_seq", "naive_sr"):
+        outs.append(staged(resolve_sr_backend(n, base, device="cuda")[0], down, down_lv))
+    assert all(bool(torch.isfinite(out.float()).all()) for out in outs)
+
+
+def _argv_lines(fake):
+    import json
+
+    with open(fake / "argv.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+@pytest.mark.gpu
+def test_external_encoders_at_1080p_under_the_codec_shim(tmp_path, monkeypatch):
+    """No encoder binary exists on the card's machine, so the codec shim
+    records each argv and stashes its input losslessly. ``run_elvis`` at
+    8x1080p through x265 (preset 'slow') with the RRDB tier and the
+    ensemble beside the generic slot: eleven rows with finite metrics, four
+    transform launches, 5 encodes x 2 passes with the qpfile (8 lines of
+    68x120 CTUs) and ``ctu=16`` on the ROI encode's pass 2. kvazaar and
+    SVT-AV1 through their pipeline codecs on the 1080p clip: the stash comes
+    back whole, the QP / CRF on the argv is the rate model's; the rate
+    model's QP on a 256x512 crop within 1 of the CPU's."""
+    from elvis_tpu_torch.codec.dispatch import _RateModel, make_pipeline_codec
+    from elvis_tpu_torch.pipeline import ElvisConfig, run_elvis
+
+    dev = _cuda()
+    fake = tmp_path / "fake"
+    fake.mkdir()
+    monkeypatch.setenv("ELVIS_TPU_FAKE_CODECS", str(fake))
+    exp = tmp_path / "exp"
+    cfg = ElvisConfig(reference_video=f"synthetic://moving?frames={N}&fps=30", width=W,
+                      height=H, experiment_dir=str(exp), codec="x265", encode_preset="slow",
+                      sr_backends=["realesrgan", "srnet", "srnet_ensemble"])
+    run, launches = _transforms(lambda: run_elvis(cfg, device="cuda"))
+    argv = _argv_lines(fake)
+    qpfiles = sorted((exp / "codec").glob("*.qpfile"))
+    assert len(qpfiles) == 1, qpfiles
+    assert run["parameters"]["derived"]["codec"] == "x265"
+    assert launches == 4
+    assert len(argv) == 10 and all(a[0] == "ffmpeg" for a in argv)
+    params = [a[a.index("-x265-params") + 1] for a in argv]
+    assert [i for i, x in enumerate(params) if "qpfile=" in x] == [5]
+    assert "ctu=16" in params[5] and "ctu=16" in params[4]
+    assert all(a[a.index("-preset") + 1] == "slow" for a in argv)
+    assert all("pass=1" in params[i] and "pass=2" in params[i + 1] for i in range(0, 10, 2))
+    assert _rows(run) == [*PIPELINE_ROWS[:6], "PRESLEY SR srnet", "PRESLEY SR srnet_ensemble",
+                          *PIPELINE_ROWS[6:]]
+    _rows_finite(run)
+    lines = qpfiles[0].read_text().splitlines()
+    ctus = math.ceil(H / 16) * math.ceil(W / 16)
+    assert len(lines) == N and all(len(x.split(" ")) == 3 + ctus for x in lines)
+
+    clip = _clip(dev)
+    sc = _score(clip, ElvisConfig())[0].cpu().numpy()
+    target = run["target_bitrate_bps"]
+    for name, flag, chain_len in (("kvazaar", "-q", 3), ("svtav1", "--crf", 2)):
+        codec = make_pipeline_codec(name, str(tmp_path / name), W, H, device="cuda")
+        before = len(_argv_lines(fake))
+        stream = codec.encode_roi(clip, removability=sc, importance=1.0 - sc, block_size=B,
+                                  roi_qp_range=15, target_bitrate=target, framerate=30.0, gop=30)
+        assert torch.equal(codec.decode(stream), clip), name
+        chain = _argv_lines(fake)[before:]
+        pick = codec._rate.hevc_qp if name == "kvazaar" else codec._rate.av1_crf
+        q = pick(clip, target, 30.0)
+        assert len(chain) == chain_len and chain[0][chain[0].index(flag) + 1] == str(q), chain
+    (rows, cols), _ = _centre(clip.shape, *CROP)
+    small_target = int(target * CROP[0] * CROP[1] / (H * W))
+    qp_card = _RateModel("cuda").hevc_qp(clip[:, rows, cols], small_target, 30.0)
+    qp_cpu = _RateModel("cpu").hevc_qp(clip[:, rows, cols].cpu(), small_target, 30.0)
+    assert abs(qp_card - qp_cpu) <= 1, (qp_card, qp_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["srnet", "srnet_ensemble"])
+def test_rrdb_and_ensemble_on_a_1080p_crop_match_cpu(name):
+    """The RRDB tier and the ensemble on a 2x128x256 centre crop of the
+    1080p clip's degraded frames, card against CPU: uint8 within 1 LSB and
+    0.1 LSB on average, restored PSNR within 0.05 dB."""
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.metrics import masked_psnr
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+
+    dev = _cuda()
+    clip = _clip(dev)
+    down, down_lv = adaptive_downsample(clip, _score(clip, ElvisConfig())[0], B)
+    (rows, cols), (brows, bcols) = _centre(clip.shape, *SR_CROP)
+    c_down, c_lv, ref = down[:2, rows, cols], down_lv[:2, brows, bcols], clip[:2, rows, cols].cpu()
+    card_fn, _ = resolve_sr_backend(name, ElvisConfig(), device=dev)
+    cpu_fn, _ = resolve_sr_backend(name, ElvisConfig(), device="cpu")
+    g_card = card_fn(c_down, c_lv, B).cpu()
+    g_cpu = cpu_fn(c_down.cpu(), c_lv.cpu(), B)
+    lsb = (g_card.int() - g_cpu.int()).abs()
+    assert int(lsb.max()) <= 1 and float(lsb.float().mean()) <= 0.1
+    assert float((masked_psnr(ref, g_card) - masked_psnr(ref, g_cpu)).abs().max()) <= 0.05
+
+
+@pytest.mark.gpu
+def test_presley_at_its_defaults_on_the_card(tmp_path):
+    """``run_presley`` at ``PresleyConfig()``'s defaults (1280x720, 20
+    frames, block 16, both shrink methods): seventeen rows, all ``ok`` with
+    finite metrics, the JSON written with the same rows, seven transform
+    launches (three degrades, 'lanczos', 'lanczos_tb', scale-Lanczos,
+    unsharp)."""
+    import json
+
+    from elvis_tpu_torch.presley import PresleyConfig, run_presley
+
+    _cuda()
+    cfg = PresleyConfig(output_dir=str(tmp_path))
+    res, launches = _transforms(lambda: run_presley(cfg, device="cuda"))
+    written = json.loads((tmp_path / "performance_metrics.json").read_text())
+    methods = res["methods"]
+    assert len(methods) == 14 + 3 * (len(cfg.shrink_methods) - 1) == 17
+    assert list(written["methods"]) == list(methods)
+    for row, r in methods.items():
+        assert r["status"] == "ok", (row, r.get("error"))
+        assert all(np.isfinite(v) for v in r["metrics"].values()), (row, r["metrics"])
+    assert launches == 7
+
+
+def _presley_rows_apart(a, b, skip=()):
+    """Largest difference of each metric over two run_presley results' rows
+    (but ``skip``): relative for the bytes and the MSE, absolute for the
+    rest."""
+    worst = {}
+    for row, rb in b["methods"].items():
+        if row in skip:
+            continue
+        ra = a["methods"][row]
+        if "size_bytes" in rb:
+            worst["bytes_rel"] = max(worst.get("bytes_rel", 0.0),
+                                     abs(ra["size_bytes"] - rb["size_bytes"]) / rb["size_bytes"])
+        for key, vb in rb["metrics"].items():
+            d = abs(ra["metrics"][key] - vb)
+            worst[key] = max(worst.get(key, 0.0), d / vb if key == "mse" else d)
+    return worst
+
+
+@pytest.mark.gpu
+def test_presley_on_card_matches_cpu(tmp_path):
+    """``run_presley`` at 6x96x64 on the card and on the CPU: the same rows,
+    all ``ok``, within the pipeline's row tolerances (bytes 1%, PSNR 0.1 dB,
+    SSIM 2e-3, MSE 1%). The diffusion row draws its noise from each
+    device's generator, so it is held to twice the CPU's own range over
+    three seeds where that is larger."""
+    from elvis_tpu_torch.presley import PresleyConfig, run_presley
+
+    _cuda()
+    small = dict(reference_video="synthetic://moving?frames=6", width=96, height=64,
+                 max_frames=6, save_intermediate=False)
+    card = run_presley(PresleyConfig(output_dir=str(tmp_path / "card"), **small), device="cuda")
+    cpu = {seed: run_presley(PresleyConfig(output_dir=str(tmp_path / f"cpu{seed}"),
+                                           instantir_seed=seed, **small), device="cpu")
+           for seed in (42, 43, 44)}
+    diff_row = "blur_instantir_adaptive"
+    assert list(card["methods"]) == list(cpu[42]["methods"])
+    assert all(r["status"] == "ok" for r in card["methods"].values())
+    worst = _presley_rows_apart(card, cpu[42], skip=(diff_row,))
+    tol = {"psnr": 0.1, "fg_psnr": 0.1, "bg_psnr": 0.1, "ssim": 2e-3, "mse": 0.01}
+    assert worst["bytes_rel"] <= 0.01 and all(worst[k] <= t for k, t in tol.items()), worst
+    seeds = [cpu[s]["methods"][diff_row]["metrics"] for s in cpu]
+    spread = {k: max(m[k] for m in seeds) - min(m[k] for m in seeds) for k in seeds[0]}
+    d_card = card["methods"][diff_row]["metrics"]
+    d_worst = {k: abs(d_card[k] - seeds[0][k]) for k in d_card}
+    assert all(d_worst[k] <= max(t * (seeds[0][k] if k == "mse" else 1), 2 * spread[k])
+               for k, t in tol.items()), d_worst
+
+
+@pytest.mark.gpu
+def test_height_tiled_restore_at_2160p_matches_whole_frames():
+    """The default SR slot's restore of 4 frames of 2160p in 3 height tiles
+    of whole blocks (a data 1 x spatial 3 logical mesh, a 64-row halo, the
+    config's; 4 tiles of 540 rows are not whole blocks) against the whole
+    frames: within 1 LSB on at most 0.5% of the pixels."""
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.parallel import spatial_tile_map_blocks
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+
+    dev = _cuda()
+    cfg = ElvisConfig()
+    n, h, w = 4, 2160, 3840
+    assert h >= cfg.spatial_tile_threshold
+    clip = _clip(dev, n, h, w)
+    degraded, levels = adaptive_downsample(clip, _score(clip, cfg)[0], B)
+    restore, _ = resolve_sr_backend("realesrgan", cfg, device=dev)
+    mesh = _logical_mesh(3, (("data", 1), ("spatial", 3)))
+    tiled = spatial_tile_map_blocks(lambda f, lv: restore(f, lv, B), degraded, levels, mesh,
+                                    64, B, data_axis="data")
+    d = (tiled.int() - restore(degraded, levels, B).int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 5e-3
+
+
+STUDENT = dict(features=256, num_convs=6, batch=16, patch=64)  # as train_srnet_student takes it
+STEP_LR = 1e-4  # the sharded and card-vs-CPU step checks: constant learning rate
+
+
+def _student_batches(dev):
+    """A held-out batch and two training batches of the student's natural
+    patches (clean, degraded, levels), from one generator seeded 7."""
+    from elvis_tpu_torch.degrade import adaptive_downsample
+    from elvis_tpu_torch.train.data import natural_frames
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    side, out = STUDENT["patch"] // B, []
+    for _ in range(3):
+        clean = natural_frames(gen, STUDENT["batch"], STUDENT["patch"], STUDENT["patch"])
+        out.append((clean, *adaptive_downsample(
+            clean, torch.rand((STUDENT["batch"], side, side), generator=gen, device=dev), B)))
+    return out[0], out[1:]
+
+
+def _sr_steps(mesh, dtype, batches, device, state):
+    """One AdamW step (constant learning rate) per batch of an SRNetCompact
+    at the student's widths from ``state``: the parameters on the CPU and
+    the losses."""
+    from elvis_tpu_torch.models import SRNetCompact
+    from elvis_tpu_torch.restore.progressive import progressive_restore
+    from elvis_tpu_torch.train import trainer as ttrainer
+    from elvis_tpu_torch.train.cli import MAX_LEVEL
+
+    model = SRNetCompact(STUDENT["features"], STUDENT["num_convs"], dtype=dtype)
+    model.load_state_dict(state)
+    model.to(device)
+
+    def loss_fn(p, data):
+        up = lambda f: torch.func.functional_call(model, p, (f,))  # noqa: E731
+        out = progressive_restore(data[1], data[2], B, upsample_fn=up, max_level=MAX_LEVEL)
+        return torch.mean((out - data[0]) ** 2) / 255.0**2
+
+    t = ttrainer.Trainer(loss_fn, model, mesh=mesh, learning_rate=STEP_LR, device=device)
+    losses = [float(t.step(tuple(x.to(device) for x in b))) for b in batches]
+    return t.params(torch.device("cpu")), losses
+
+
+def _params_apart(got, want, start):
+    """Adam moves a weight by up to the learning rate whatever its gradient's
+    size, so a near-zero gradient's rounding (cuDNN picks its algorithms by
+    batch) can move one weight apart: per tensor, the mean distance against
+    the mean move, and the largest distance."""
+    return {"mean_over_move": max(float((got[n] - want[n]).abs().mean()) / max(
+                float((want[n] - start[n]).abs().mean()), 1e-12) for n in want),
+            "max_param_apart": max(float((got[n] - want[n]).abs().max()) for n in want)}
+
+
+@pytest.mark.gpu
+def test_student_trains_at_its_shipped_architecture(tmp_path, monkeypatch):
+    """``train_srnet_student`` at 256 x 6 (batch 16, patch 64, the three
+    teachers, procedural data) for 100 steps at lr 1e-3: finite losses, the
+    held-out ground-truth loss lower at the end than after warm-up, one
+    transform launch a step; the checkpoint through ``resolve_sr_backend``
+    names its tier and restores as the trained module. Two float32 steps of
+    the trained student on logical data 2 and data 2 x tensor 2 meshes
+    against one device (deterministic cuDNN): the mean distance within 1%
+    of the mean move, the largest within a quarter of the summed learning
+    rate, the losses within 1e-5 relative."""
+    from elvis_tpu_torch.device import full_fp32
+    from elvis_tpu_torch.models.srnet import srnet_upsample_fn
+    from elvis_tpu_torch.parallel import make_mesh
+    from elvis_tpu_torch.pipeline import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_sr_backend
+    from elvis_tpu_torch.restore.progressive import progressive_restore
+    from elvis_tpu_torch.train import trainer as ttrainer
+    from elvis_tpu_torch.train.cli import MAX_LEVEL, train_srnet_student
+
+    dev = _cuda()
+    steps, warm, snaps = 100, 11, {}
+    real_step = ttrainer.Trainer.step
+
+    def step_and_snap(self, batch):  # the parameters right after warm-up
+        loss = real_step(self, batch)
+        if self.state.step == warm:
+            snaps["warm"] = {k: v.clone() for k, v in self.params().items()}
+        return loss
+
+    (held_clean, held_deg, held_lv), batches = _student_batches(dev)
+
+    def held_loss(model, params):
+        up = lambda f: torch.func.functional_call(model, params, (f,))  # noqa: E731
+        with torch.no_grad():
+            out = progressive_restore(held_deg, held_lv, B, upsample_fn=up, max_level=MAX_LEVEL)
+        return float(torch.mean((out - held_clean) ** 2) / 255.0**2)
+
+    monkeypatch.setattr(ttrainer.Trainer, "step", step_and_snap)
+    tr, launches = _transforms(lambda: train_srnet_student(
+        steps, str(tmp_path), lr=1e-3, photo_fraction=0.0, device=dev, log_every=10, **STUDENT))
+    monkeypatch.undo()
+    path = str(tmp_path / "srnet_student.npz")
+    fn, prov = resolve_sr_backend("srnet_student", ElvisConfig(srnet_params_path=path),
+                                  device=dev)
+    via_backend = fn(held_deg, held_lv, B)
+    with torch.no_grad():
+        via_module = progressive_restore(held_deg, held_lv, B,
+                                         upsample_fn=srnet_upsample_fn(tr.model))
+    assert all(math.isfinite(x) for x in tr.losses)
+    assert held_loss(tr.model, tr.params()) < held_loss(tr.model, snaps["warm"])
+    assert launches == steps
+    assert prov == f"progressive_neural[srnet_student:{path}]"
+    assert torch.equal(via_backend, via_module)
+
+    trained, start = tr.model.state_dict(), {k: v.cpu() for k, v in tr.params().items()}
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with full_fp32():
+            one, one_losses = _sr_steps(make_mesh(devices=[0], device_type="cuda"),
+                                        torch.float32, batches, dev, trained)
+            for k, axes in ((2, (("data", 2),)), (4, (("data", 2), ("tensor", 2)))):
+                got, got_losses = _sr_steps(_logical_mesh(k, axes), torch.float32, batches,
+                                            dev, trained)
+                apart = _params_apart(got, one, start)
+                assert apart["mean_over_move"] <= 0.01, (axes, apart)
+                assert apart["max_param_apart"] <= 0.25 * 2 * STEP_LR, (axes, apart)
+                assert max(abs(a - b) / b for a, b in zip(got_losses, one_losses)) <= 1e-5
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+
+
+@pytest.mark.gpu
+def test_bf16_student_steps_on_the_card_match_the_cpu():
+    """Two bf16 steps of the shipped ``srnet_student`` (the same start in
+    every run) on a 4 x 32 x 32 crop of the training batches, card against
+    CPU: the mean distance within 15% of the mean move, no tensor with more
+    than the larger of 2 and 5% of its elements beyond a quarter of the
+    summed learning rate, the losses within 1e-2 relative (the bf16 trunks
+    round differently). Negative control: the card's ``up.bias`` put back
+    where it started fails the same statistic."""
+    from _steps_apart import tensors_moved_apart
+    from elvis_tpu_torch.models.io import load_srnet, weights_path
+    from elvis_tpu_torch.parallel import make_mesh
+
+    dev = _cuda()
+    _, batches = _student_batches(dev)
+    shipped = load_srnet(weights_path("srnet_student"), device="cpu").state_dict()
+    crop = [tuple(x[:4, : x.shape[1] // 2, : x.shape[2] // 2] for x in b) for b in batches]
+    card, card_losses = _sr_steps(make_mesh(devices=[0], device_type="cuda"), torch.bfloat16,
+                                  crop, dev, shipped)
+    cpu, cpu_losses = _sr_steps(make_mesh(devices=[0], device_type="cpu"), torch.bfloat16,
+                                [tuple(x.cpu() for x in b) for b in crop], torch.device("cpu"),
+                                shipped)
+    limit = 0.25 * 2 * STEP_LR
+    _, failing = tensors_moved_apart(card, cpu, limit)
+    _, control_failing = tensors_moved_apart(dict(card, **{"up.bias": shipped["up.bias"]}), cpu,
+                                             limit)
+    assert "up.bias" in control_failing
+    assert _params_apart(card, cpu, shipped)["mean_over_move"] <= 0.15 and not failing, failing
+    assert max(abs(a - b) / b for a, b in zip(card_losses, cpu_losses)) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_deblur_and_srnet_4k_train_on_the_card(tmp_path):
+    """``train_deblur`` at its defaults and ``train_srnet_4k`` (64 x 5 over
+    the frozen ``srnet_compact``), 5 steps each: finite losses, one
+    transform launch a step; the deblur checkpoint keeps ``max_strength``
+    10."""
+    from elvis_tpu_torch.models.io import load_deblur
+    from elvis_tpu_torch.train.cli import train_deblur, train_srnet_4k
+
+    dev = _cuda()
+    for call in (lambda: train_deblur(5, str(tmp_path), device=dev, log_every=100),
+                 lambda: train_srnet_4k(5, str(tmp_path), photo_fraction=0.0, device=dev,
+                                        log_every=100)):
+        tr, launches = _transforms(call)
+        assert all(math.isfinite(x) for x in tr.losses) and launches == 5
+    assert load_deblur(str(tmp_path / "deblur.npz"), device=dev).max_strength == 10.0
+
+
+@pytest.mark.gpu
+def test_rd_sweep_at_1080p_on_the_card():
+    """``rd_sweep`` on the 8-frame 1080p synthetic clip at QPs 26, 38 and
+    51: one point a QP on each curve, and more bits give more PSNR."""
+    from elvis_tpu_torch.search import rd_curve
+
+    dev = _cuda()
+    curves = rd_curve.rd_sweep(f"synthetic://moving?frames={N}", W, H, B, qps=(26, 38, 51),
+                               device=dev)
+    for label, pts in curves.items():
+        assert sorted(p["qp"] for p in pts) == [26, 38, 51], label
+        by_bits = sorted(pts, key=lambda p: p["kbps"])
+        assert all(a["psnr"] < b["psnr"] for a, b in zip(by_bits, by_bits[1:])), (label, by_bits)
+
+
+@pytest.mark.gpu
+def test_searches_on_the_card_match_direct_runs(tmp_path):
+    """``grid_search`` and ``random_search`` over two default runs at
+    640x360 (shrink 0.25 and 0.5): every run ``ok``, its rows those of a
+    direct ``run_elvis`` of its overrides within the pipeline's row tolerances; then
+    ``cleanup_results`` leaves only JSON and PNG files."""
+    import importlib
+
+    from elvis_tpu_torch.pipeline import ElvisConfig, run_elvis
+    from elvis_tpu_torch.search import cleanup, grid
+
+    rsearch = importlib.import_module("elvis_tpu_torch.search.random_search")
+    dev = _cuda()
+    video = f"synthetic://moving?frames={N}&fps=30"
+    space = {"reference_video": [video], "width": [640], "height": [360],
+             "shrink_amount": [0.25, 0.5]}
+    summaries = {"grid": grid.grid_search(space, str(tmp_path / "grid"), device=dev),
+                 "random": rsearch.random_search(space, runs=2, seed=0,
+                                                 results_dir=str(tmp_path / "random"),
+                                                 device=dev)}
+    direct = {a: run_elvis(ElvisConfig(reference_video=video, width=640, height=360,
+                                       shrink_amount=a, experiment_dir=str(tmp_path / f"d{a}")),
+                           device=dev) for a in space["shrink_amount"]}
+    for name, summary in summaries.items():
+        assert len(summary) == 2 and all(r["status"] == "ok" for r in summary), summary
+        for r in summary:
+            want = direct[r["overrides"]["shrink_amount"]]
+            assert _rows(r["metrics"]) == _rows(want), (name, r["slug"])
+            apart = _rows_apart(r["metrics"], want)
+            assert all(apart[k] <= v for k, v in ROW_TOL.items()), (name, r["slug"], apart)
+        cleanup.cleanup_results(str(tmp_path / name))
+        left = [f for f in (tmp_path / name).rglob("*")
+                if f.is_file() and not f.name.endswith((".json", ".png"))]
+        assert not left, left[:5]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["diffusion", "inpaint", "saliency", "perceptual"])
+def test_trainers_at_their_defaults_load_back_on_the_card(name, tmp_path):
+    """Each of the diffusion, inpaint, saliency and perceptual trainers at
+    its defaults for 5 steps (procedural data): finite losses, and the
+    checkpoint through its loader runs the trained module's forward."""
+    from elvis_tpu_torch.metrics.perceptual import load_perceptual
+    from elvis_tpu_torch.models import DiffusionRestorer
+    from elvis_tpu_torch.models.io import load_diffusion, load_inpaint, load_saliency
+    from elvis_tpu_torch.train import cli
+
+    dev = _cuda()
+    tr = getattr(cli, f"train_{name}")(5, str(tmp_path), photo_fraction=0.0, device=dev,
+                                       log_every=100)
+    assert all(math.isfinite(x) for x in tr.losses)
+    path = str(tmp_path / f"{name}.npz")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((8, 64, 64, 3), generator=gen, device=dev) * 255
+    with torch.no_grad():
+        if name == "diffusion":
+            ref = DiffusionRestorer().to(dev)
+            ref.unet.load_state_dict(tr.params())
+            assert torch.equal(load_diffusion(path, dev).sample(x, steps=2), ref.sample(x, steps=2))
+        elif name == "inpaint":
+            mask = (torch.rand((8, 8, 8), generator=gen, device=dev) < 0.25).to(torch.int8)
+            assert torch.equal(load_inpaint(path, dev)(x, mask, B), tr.model(x, mask, B))
+        elif name == "saliency":
+            assert torch.equal(load_saliency(path, dev)(x), tr.model(x))
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(load_perceptual(path, dev)(x),
+                                                          tr.model(x)))
+
+
+@pytest.mark.gpu
+def test_holdout_evaluators_and_graft_entry_on_the_card():
+    """``sr_holdout_eval`` with the shipped student and
+    ``deblur_holdout_eval`` with the shipped deblur net at their defaults:
+    the procedural families run (the photo family drops out without PIL)
+    and every number is finite. ``graft_entry.entry()``'s forward on the
+    card, and ``dryrun_multichip(2)`` on logical shards of it."""
+    from elvis_tpu_torch.graft_entry import dryrun_multichip, entry
+    from elvis_tpu_torch.models.io import load_deblur, load_srnet, weights_path
+    from elvis_tpu_torch.models.srnet import srnet_upsample_fn
+    from elvis_tpu_torch.train import evaluate
+
+    dev = _cuda()
+    sr = evaluate.sr_holdout_eval(srnet_upsample_fn(load_srnet(weights_path("srnet_student"),
+                                                               dev)), device=dev)
+    deblur = load_deblur(weights_path("deblur"), dev)
+    db = evaluate.deblur_holdout_eval(lambda f, lv, b: deblur(f, lv, b), device=dev)
+    assert all(math.isfinite(v) for r in (*sr.values(), *db.values()) for v in r.values())
+    assert {"leaves", "legacy"} <= set(db) and {"leaves_codec", "legacy_codec"} <= set(sr)
+    fn, (params, x) = entry(device=dev)
+    y = fn(params, x)
+    assert tuple(y.shape) == (2, 256, 256, 3) and bool(torch.isfinite(y).all())
+    assert dryrun_multichip(2, device=dev)["logical"]

@@ -5,9 +5,8 @@ The config dict is held EQUAL to the JAX package's (it feeds the stage
 cache's key and ``parameters.config`` of the results JSON), field for
 field and in order; the merge order defaults -> --config JSON -> flags
 gives equal configs from the same argv. Every field of the port is live
-(a call site in ``elvis_tpu_torch/``), absorbed, or pending with the
-ROADMAP item that brings it; each pending field and each backend name not
-ported yet makes ``run_elvis`` raise before stage 0.
+(a call site in ``elvis_tpu_torch/``) or absorbed; the fields and names
+ported after the first slice reach their mechanisms as in JAX.
 """
 
 import dataclasses
@@ -82,19 +81,18 @@ def _port_source_without_config():
     return "\n".join(chunks)
 
 
-def test_every_field_live_absorbed_or_pending():
+def test_every_field_live_or_absorbed():
     src = _port_source_without_config()
     names = [f.name for f in dataclasses.fields(tcfg.ElvisConfig)]
-    absorbed, pending = tcfg.ABSORBED_FIELDS, set(tcfg.PENDING_FIELDS)
-    assert not absorbed & pending
-    assert absorbed | pending <= set(names)
+    absorbed = tcfg.ABSORBED_FIELDS
+    assert absorbed <= set(names)
     assert jcfg.ABSORBED_FIELDS <= absorbed  # absorbed there: absorbed here
-    missing = [n for n in names if n not in absorbed | pending
+    missing = [n for n in names if n not in absorbed
                and not re.search(rf"(\.{n}\b|[\"']{n}[\"'])", src)]
     assert not missing, f"fields with no call site in elvis_tpu_torch/: {missing}"
-    stale = [n for n in sorted(absorbed | pending)
+    stale = [n for n in sorted(absorbed)
              if re.search(rf"(config\.{n}\b|getattr\(config,\s*[\"']{n}[\"'])", src)]
-    assert not stale, f"absorbed or pending fields with a call site: {stale}"
+    assert not stale, f"absorbed fields with a call site: {stale}"
 
 
 def _away_from_default(name):
@@ -110,58 +108,38 @@ def _away_from_default(name):
     return [0] if name.endswith("_devices") else ("w.npz" if name.endswith("_path") else 3)
 
 
-# fields that were pending and are ported now: ROADMAP.md §1 items 4, 7 and 8
-PORTED_FIELDS = {"encode_preset": 4, "encode_pix_fmt": 4, "minimal_figures": 8,
+# fields ported after the first slice, by the ROADMAP.md §1 item that
+# brought them: 4 (the external encoders) and 7 (the stage mesh); the search
+# drivers' minimal_figures (item 8) is covered by tests/test_torch_search.py
+PORTED_FIELDS = {"encode_preset": 4, "encode_pix_fmt": 4,
                  **{name: 7 for name in ("propainter_devices", "e2fgvi_devices",
                                          "realesrgan_devices", "instantir_devices",
                                          "spatial_devices", "spatial_tile_threshold",
                                          "spatial_halo")}}
 
 
-@pytest.mark.parametrize("name", sorted({*tcfg.PENDING_FIELDS, *PORTED_FIELDS}))
-def test_pending_field_raises_before_stage_zero(name, tmp_path):
-    """A pending field away from its default raises before stage 0, naming
-    its item. A field ported since passes ``check_ported``: the external
-    encoders' preset and pixel format reach the codec as in JAX; the item-7
-    device fields and the spatial axis configure the stage mesh (one card:
-    no mesh, tests/test_torch_parallel.py covers the logical meshes);
-    ``minimal_figures`` (item 8) is read by the search drivers
-    (tests/test_torch_search.py), and no field is pending any more."""
-    from elvis_tpu_torch.pipeline import run_elvis
-
-    exp = tmp_path / "exp"
+@pytest.mark.parametrize("name", sorted(PORTED_FIELDS))
+def test_ported_field_reaches_its_mechanism(name, tmp_path):
+    """The external encoders' preset and pixel format reach the codec as in
+    JAX; the item-7 device fields and the spatial axis configure the stage
+    mesh (one card: no mesh, tests/test_torch_parallel.py covers the
+    logical meshes)."""
     value = _away_from_default(name)
-    cfg = tcfg.ElvisConfig(inpaint_backends=["diffusion"], experiment_dir=str(exp),
-                           **{name: value})
-    if name in PORTED_FIELDS:
-        assert name not in tcfg.PENDING_FIELDS
-        assert PORTED_FIELDS[name] not in set(tcfg.PENDING_FIELDS.values())
-        tcfg.check_ported(cfg)
-        if PORTED_FIELDS[name] == 8:
-            # the search drivers' figure roll-up reads it from the grid
-            assert tcfg.PENDING_FIELDS == {} and tcfg._ITEMS == {}
-            return
-        if PORTED_FIELDS[name] == 7:
-            from elvis_tpu_torch.pipeline.run import _DataParallel
+    cfg = tcfg.ElvisConfig(inpaint_backends=["diffusion"], **{name: value})
+    if PORTED_FIELDS[name] == 7:
+        from elvis_tpu_torch.pipeline.run import _DataParallel
 
-            dp = _DataParallel(cfg.data_parallel, spatial=cfg.spatial_devices,
-                               device_type="cpu")
-            assert dp.mesh is None and dp.spatial_mesh is None  # one CPU device
-            assert dp._mesh_for(getattr(cfg, name) if name.endswith("_devices") else None) \
-                is None
-            return
-        from elvis_tpu.codec.dispatch import make_pipeline_codec as jmake
-        from elvis_tpu_torch.codec.dispatch import make_pipeline_codec as tmake
-
-        kw = {name.replace("encode_", ""): value}
-        t = tmake("x265", str(tmp_path / "t"), 64, 48, device="cpu", **kw)
-        j = jmake("x265", str(tmp_path / "j"), 64, 48, **kw)
-        assert (t.preset, t.pix_fmt) == (j.preset, j.pix_fmt) and value in (t.preset, t.pix_fmt)
+        dp = _DataParallel(cfg.data_parallel, spatial=cfg.spatial_devices, device_type="cpu")
+        assert dp.mesh is None and dp.spatial_mesh is None  # one CPU device
+        assert dp._mesh_for(getattr(cfg, name) if name.endswith("_devices") else None) is None
         return
-    item = tcfg.PENDING_FIELDS[name]
-    with pytest.raises(NotImplementedError, match=rf"{name}=.*ROADMAP\.md §1 item {item}"):
-        run_elvis(cfg, device="cpu")
-    assert not exp.exists()  # nothing of stage 0 ran
+    from elvis_tpu.codec.dispatch import make_pipeline_codec as jmake
+    from elvis_tpu_torch.codec.dispatch import make_pipeline_codec as tmake
+
+    kw = {name.replace("encode_", ""): value}
+    t = tmake("x265", str(tmp_path / "t"), 64, 48, device="cpu", **kw)
+    j = jmake("x265", str(tmp_path / "j"), 64, 48, **kw)
+    assert (t.preset, t.pix_fmt) == (j.preset, j.pix_fmt) and value in (t.preset, t.pix_fmt)
 
 
 @pytest.mark.parametrize("field,value,item", [
@@ -173,16 +151,13 @@ def test_pending_field_raises_before_stage_zero(name, tmp_path):
     ("codec", "svtav1", 4),
     ("codec", "h264", None),
 ])
-def test_pending_names_raise_before_stage_zero(field, value, item, tmp_path):
-    """The names of items 2 and 4 were pending; they are ported now: no
-    name is pending, ``check_ported`` takes each, and the SR name resolves
-    (the provenance JAX's up to the weights file) or the codec builds as in
-    JAX. A codec neither package knows raises ValueError in both."""
+def test_ported_names_resolve_as_in_jax(field, value, item, tmp_path):
+    """The SR and codec names of items 2 and 4: the SR name resolves (the
+    provenance JAX's up to the weights file) or the codec builds as in JAX.
+    A codec neither package knows raises ValueError in both."""
     from elvis_tpu.codec.dispatch import make_pipeline_codec as jmake
     from elvis_tpu_torch.codec.dispatch import make_pipeline_codec as tmake
 
-    assert tcfg._PENDING_NAMES == {} and item not in tcfg._ITEMS
-    tcfg.check_ported(tcfg.ElvisConfig(**{field: value}))
     if field == "sr_backends":
         from elvis_tpu.restore.backends import resolve_sr_backend as jresolve
         from elvis_tpu_torch.restore.backends import resolve_sr_backend as tresolve
@@ -198,26 +173,6 @@ def test_pending_names_raise_before_stage_zero(field, value, item, tmp_path):
         return
     t = tmake(value, str(tmp_path / "t"), 64, 48, device="cpu")
     assert t.name == jmake(value, str(tmp_path / "j"), 64, 48).name == value
-
-
-def test_default_config_raises_for_its_temporal_rows():
-    """The default config is ported whole: its inpaint list names
-    'temporal' and 'neural', which run now, and so do the ProPainter and
-    E2FGVI knobs set away from their defaults and, since item 7, the
-    per-stage device lists of those rows."""
-    tcfg.check_ported(tcfg.ElvisConfig())
-    assert tcfg.ElvisConfig().inpaint_backends == ["diffusion", "temporal", "neural"]
-    tcfg.check_ported(tcfg.ElvisConfig(
-        inpaint_backends=["diffusion", "temporal", "neural", "inpaint_net", "e2fgvi"],
-        propainter_resize_ratio=0.5, propainter_ref_stride=4, propainter_neighbor_length=2,
-        propainter_subvideo_length=9, propainter_mask_dilation=16,
-        propainter_parallel_chunk_length=4, propainter_chunk_overlap=6, e2fgvi_ref_stride=3,
-        e2fgvi_neighbor_stride=2, e2fgvi_num_ref=2, e2fgvi_mask_dilation=8,
-        e2fgvi_parallel_chunk_length=4, e2fgvi_chunk_overlap=6,
-        inpaint_params_path="w.npz"))
-    for name in ("propainter_devices", "e2fgvi_devices"):
-        tcfg.check_ported(tcfg.ElvisConfig(**{name: [0, 1]}))
-    assert 7 not in tcfg._ITEMS and "data_parallel" not in tcfg.ABSORBED_FIELDS
 
 
 def test_cli_runs_on_the_card_only(tmp_path, monkeypatch):
@@ -277,8 +232,8 @@ def test_srnet_large_raises_and_the_lanczos_fallback_keeps_the_knobs():
         (40, 96 * 96, 3)
 
 
-# fields and names ported in this slice: check_ported takes each, and the
-# backend it names resolves and runs on a small clip
+# fields and names ported with the last backends: the backend each names
+# resolves and runs on a small clip
 PORTED_CASES = [
     ("realesrgan_fp32", True), ("instantir_seed", 7), ("instantir_batch_size", 2),
     ("enable_dct_dampen", True), ("saliency_backend", "neural"),
@@ -296,7 +251,6 @@ def test_ported_field_or_name_runs(field, value):
     from elvis_tpu_torch.scoring import get_saliency_fn
 
     cfg = tcfg.ElvisConfig(**{field: value})
-    tcfg.check_ported(cfg)
     rng = np.random.default_rng(0)
     frames = torch.from_numpy(rng.integers(0, 256, (2, 16, 16, 3)).astype(np.uint8))
     maps = torch.from_numpy(rng.integers(0, 3, (2, 2, 2)).astype(np.int32))
@@ -325,7 +279,7 @@ def test_ported_field_or_name_runs(field, value):
 
 def test_run_elvis_takes_every_ported_field_and_name(tmp_path):
     """One port run with every field and name of ``PORTED_CASES`` at once:
-    no NotImplementedError, every row finite."""
+    every row finite."""
     from elvis_tpu_torch.pipeline import run_elvis
 
     kw = {field: value for field, value in PORTED_CASES if not isinstance(value, list)}

@@ -1,27 +1,18 @@
-"""``chip_smoke.py``'s card-against-CPU statistic for the bf16 student's
-steps (``tensors_moved_apart``), on CPU tensors.
+"""The card-against-CPU statistic for the bf16 student's steps
+(``tensors_moved_apart``, ``tests/_steps_apart.py``; the ``-m gpu`` test
+``test_bf16_student_steps_on_the_card_match_the_cpu`` applies it), on CPU
+tensors.
 
 A tensor fails when more of its elements than the larger of 2 and 5% of
-them moved apart by more than the limit. The script is imported from its
-file: it needs no card to import.
+them moved apart by more than the limit.
 """
-
-import importlib.util
-from pathlib import Path
 
 import pytest
 import torch
 
+from _steps_apart import tensors_moved_apart
+
 LIMIT = 0.25 * 2 * 1e-4  # a quarter of two steps' summed learning rate
-
-
-@pytest.fixture(scope="module")
-def smoke():
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke_gates", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 def _params(gen):
@@ -41,7 +32,7 @@ def _params(gen):
     ("6% of 1000 apart", ["conv0.weight"]),
     ("5% of 1000 apart", []),
 ])
-def test_tensors_moved_apart(smoke, case, failing):
+def test_tensors_moved_apart(case, failing):
     start, want = _params(torch.Generator().manual_seed(0))
     got = {k: v.clone() for k, v in want.items()}
     if case == "one of 12 apart":
@@ -53,7 +44,7 @@ def test_tensors_moved_apart(smoke, case, failing):
     else:
         count = 60 if case.startswith("6%") else 50
         got["conv0.weight"].view(-1)[:count] = start["conv0.weight"].view(-1)[:count]
-    beyond, names = smoke.tensors_moved_apart(got, want, LIMIT)
+    beyond, names = tensors_moved_apart(got, want, LIMIT)
     assert names == failing
     moved = {"one of 12 apart": 1, "two of 12 apart": 2, "12-element tensor unmoved": 12,
              "6% of 1000 apart": 60, "5% of 1000 apart": 50}[case]

@@ -398,9 +398,11 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax_and_no_reference_package():
     """No module of elvis_tpu_torch imports jax, flax, orbax or elvis_tpu,
-    and chip_smoke.py neither."""
+    and neither do chip_smoke.py and the card's test files."""
     banned = ("jax", "jaxlib", "flax", "orbax", "optax", "elvis_tpu")
-    files = sorted((REPO / "elvis_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "elvis_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "test_torch_gpu.py",
+        REPO / "tests" / "_steps_apart.py"]
     assert len(files) > 10
     bad = [
         (str(f.relative_to(REPO)), mod)
