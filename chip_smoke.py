@@ -27,11 +27,20 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
      bias and leaky ReLU); each held bit-equal to the plain version, timed
      beside its byte bound and beside PyTorch's own route (the cuDNN path's
      ``add_`` of the bias over the channels-last NCHW view, then each op
-     as its own pass; never called by the port); ptxas registers and spills.
+     as its own pass; never called by the port); ptxas registers and spills;
+  2c. the SR nets' float32 tail kernel (``csrc/tail_conv.cu``; no TPU
+     kernel) at the restore cells' shapes: RRDB's finest stage in phase
+     form (8 x 540 x 960 x 2 x 2 x 128), Real-ESRGAN's ``conv_last`` at 2x
+     (8 x 1080 x 1920 x 64) and the student's phase tail (Cin 3); each held
+     to the plain version, timed beside its bound (bf16 read once, float32
+     written once; 54 Cin FLOPs an output pixel at the FP32 rate) and beside
+     the nets' own plain route, which the card took before the kernel (a
+     float32 copy, then cuDNN's float32 conv over the NCHW view, in the
+     phase form with the scattered 4 Cin -> 12 kernel; TF32 off).
 
 The port's paths are gated on the card by the ``-m gpu`` tests
 (``python -m pytest tests/test_torch_gpu.py tests/test_torch_conv_epilogue.py
--m gpu --noconftest -q``) and timed by the benchmark (``port_bench/run.py``).
+tests/test_torch_tail_conv.py -m gpu --noconftest -q``) and timed by the benchmark (``port_bench/run.py``).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -110,6 +119,9 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel replaced)
     "conv_epilogue": ("conv_epilogue.conv_epilogue_cuda",
                       "elvis_tpu_torch/kernels/csrc/conv_epilogue.cu",
                       "none: XLA fuses the flax convs' bias, activation and residuals"),
+    "tail_conv": ("tail_conv.tail_conv_cuda",
+                  "elvis_tpu_torch/kernels/csrc/tail_conv.cu",
+                  "none: XLA runs the flax model's float32 tail conv"),
 }
 BLOCK_KERNELS = ("block_transform", "block_transform_batched")  # phase 2's pair
 KERNEL_TOL = 1e-3
@@ -487,6 +499,73 @@ def phase_epilogue():
     return rows
 
 
+TAIL_ROWS = [  # (label, input shape): the restore cells' tails
+    ("rrdb_phase_finest", (N, H // 2, W // 2, 2, 2, 128)),
+    ("realesrgan_conv_last", (N, H, W, 64)),
+    ("student_phase_finest", (N, H // 2, W // 2, 2, 2, 3)),
+]
+
+
+def phase_tail():
+    """The tail kernel at the cells' shapes: held to the plain version (tol
+    1e-3), timed with CUDA events beside its bound, the plain version and
+    the nets' own plain route (phase 2 built it). Returns the rows."""
+    from elvis_tpu_torch.device import full_fp32
+    from elvis_tpu_torch.kernels import tail_conv as tc
+    from elvis_tpu_torch.models.srnet import _nhwc_conv, _TailConv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for label, shape in TAIL_ROWS:
+        cin = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
+        tail = _TailConv(cin).to(dev)
+        with torch.no_grad():
+            tail.weight.copy_(torch.randn(tail.weight.shape, generator=gen, device=dev)
+                              / (9 * cin) ** 0.5)
+            tail.bias.copy_(torch.randn(3, generator=gen, device=dev))
+        w, b = tail.weight.detach(), tail.bias.detach()
+        if x.dim() == 6:  # the nets' plain routes
+            def before():
+                return tail._phase_plain(x.float())
+        else:
+            def before():
+                with full_fp32():
+                    return _nhwc_conv(x.float(), w, b)
+        got = tc.tail_conv_cuda(x, w, b)
+        want = tc.tail_conv(x, w, b)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= KERNEL_TOL, f"tail_conv {label}: kernel and plain version differ by {err}")
+        err_before = (before() - want).abs().max().item()
+        del got, want
+        calls = {"kernel": lambda: tc.tail_conv_cuda(x, w, b), "library": before}
+        runs = {k: [] for k in calls}
+        for key in list(calls) + list(reversed(calls)):
+            runs[key].append(cuda_ms(calls[key], iters=20 if key == "kernel" else 5))
+        plain_ms = cuda_ms(lambda: tc.tail_conv(x, w, b), iters=5)
+        pixels = x.numel() // cin  # full-resolution output pixels
+        nbytes = 2 * x.numel() + 4 * 3 * pixels + 4 * w.numel()
+        flops = 2 * 27 * cin * pixels
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+        bound, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+        ms, lib_ms = (sum(runs[k]) / len(runs[k]) for k in ("kernel", "library"))
+        print(f"[tail] {label} {shape}: max |kernel - plain| {err:.3g} (the nets' route "
+              f"{err_before:.3g}); kernel {ms:.4f} ms "
+              f"({', '.join(f'{r:.4f}' for r in runs['kernel'])}), the nets' route "
+              f"{lib_ms:.4f} ms ({', '.join(f'{r:.4f}' for r in runs['library'])}), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}: {nbytes:,} B, "
+              f"{flops:,} FLOP), {bound / ms:.1%} of bound")
+        rows.append({"label": label, "shape": list(shape), "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                     "library_ms": lib_ms})
+        del x, tail, w, b
+        torch.cuda.empty_cache()
+    print(json.dumps({"tail": rows}))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -501,13 +580,16 @@ def main() -> int:
     name, count = phase_device()
     kernel_results, frame_rows = phase_kernels()
     epilogue_rows = phase_epilogue()
+    tail_rows = phase_tail()
     # the transform kernel's headline row is what the paths launch: uint8
     # frames, b=8, the main path's table; the batched kernel's is the block
     # contract at the same table (b=8, L=4, M=259,200, C=3); the epilogue's
-    # is the student's trunk conv (256 channels, bias and leaky ReLU)
+    # is the student's trunk conv (256 channels, bias and leaky ReLU); the
+    # tail's is RRDB's finest stage
     all_rows = {"block_transform": frame_rows + kernel_results["block_transform"],
                 "block_transform_batched": kernel_results["block_transform_batched"],
-                "conv_epilogue": epilogue_rows}
+                "conv_epilogue": epilogue_rows,
+                "tail_conv": tail_rows}
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         rows = all_rows[kname]

@@ -24,9 +24,16 @@ of it in one in-place pass, bit-equal to the PyTorch ops it replaces; on the
 CPU, in float32 and with gradients the PyTorch ops run as written. The
 ``nets`` counters ``epilogue.fused`` and ``epilogue.plain`` count the trunk
 convs of each route, and ``modpad`` the ``RealESRGANx2`` inputs of odd
-height or width. Under ``torch.profiler`` (``utils.trace.span``) both RRDB
-nets record ``srnet.body`` (the RRDB chain and its closing conv), and
-``RealESRGANx2`` also ``srnet.upsample_head`` and ``srnet.modpad``.
+height or width. The float32 tail (``_TailConv``, ``RealESRGANx2``'s
+``conv_last``) takes the same rule: on a card, on the bf16 trunk output,
+with autograd off, the hand-written kernel ``kernels.tail_conv`` reads the
+bf16 tensor where it lies (no float32 copy, no NCHW view, no phase-domain
+kernel); elsewhere the float32 convolution runs as written. Counters
+``tail.fused`` and ``tail.plain`` count its calls of each route. Under
+``torch.profiler`` (``utils.trace.span``) every net records ``srnet.tail``
+around its tail, both RRDB nets ``srnet.body`` (the RRDB chain and its
+closing conv), and ``RealESRGANx2`` also ``srnet.upsample_head`` (around
+its ``srnet.tail``) and ``srnet.modpad``.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch.nn.functional as F
 
 from elvis_tpu_torch.device import full_fp32
 from elvis_tpu_torch.kernels.conv_epilogue import conv_epilogue_cuda, epilogue_rest
+from elvis_tpu_torch.kernels.tail_conv import tail_conv, tail_conv_cuda
 from elvis_tpu_torch.ops.resize import interleave_phases, resize, upsample2x_phases
 from elvis_tpu_torch.utils.trace import counter, span
 
@@ -72,6 +80,18 @@ def _nhwc_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> tor
     return out.permute(0, 2, 3, 1)
 
 
+def _tail(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, plain) -> torch.Tensor:
+    """The float32 tail (3 output channels) on ``x``: the ``tail_conv``
+    kernel on a bf16 CUDA tensor with autograd off, else ``plain()``."""
+    with span("srnet.tail"):
+        if (x.is_cuda and x.dtype == torch.bfloat16 and weight.shape[0] == 3
+                and not torch.is_grad_enabled()):
+            NETS["tail.fused"] += 1
+            return tail_conv_cuda(x, weight, bias)
+        NETS["tail.plain"] += 1
+        return plain()
+
+
 class _TailConv(nn.Module):
     """The float32 3x3 full-resolution residual head, with an exact
     phase-domain mode: a 3x3 conv over the pixel-shuffled image equals a
@@ -84,12 +104,14 @@ class _TailConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x ``(N,H,W,Cin)`` -> ``(N,H,W,features)``."""
-        with full_fp32():
-            return _nhwc_conv(x.float(), self.weight, None) + self.bias
+        """x ``(N,H,W,Cin)`` -> ``(N,H,W,features)`` float32."""
+        return _tail(x, self.weight, self.bias, lambda: tail_conv(x, self.weight, self.bias))
 
     def phase(self, x: torch.Tensor) -> torch.Tensor:
-        """x ``(N,H,W,2,2,Cin)`` -> ``(N,H,W,2,2,features)``."""
+        """x ``(N,H,W,2,2,Cin)`` -> ``(N,H,W,2,2,features)`` float32."""
+        return _tail(x, self.weight, self.bias, lambda: self._phase_plain(x))
+
+    def _phase_plain(self, x: torch.Tensor) -> torch.Tensor:
         cin, co = self.cin, self.features
         n, hh, ww = x.shape[0], x.shape[1], x.shape[2]
         sel = torch.as_tensor(_phase_kernel_select(), device=x.device)
@@ -148,11 +170,11 @@ class _Trunk(_ConvNet):
         else:
             ph = self._trunk(x)
         if self.phase_output if phase_output is None else phase_output:
-            res = self.tail.phase(ph.float())
+            res = self.tail.phase(ph)
             base = upsample2x_phases(x.float(), "lanczos4")
             return torch.clamp(base + 127.5 * res, 0.0, 255.0)
         base = resize(x, (x.shape[-3] * 2, x.shape[-2] * 2), method="lanczos4")
-        residual = self.tail(interleave_phases(ph).float())
+        residual = self.tail(interleave_phases(ph))
         return torch.clamp(base.float() + 127.5 * residual, 0.0, 255.0)
 
 
@@ -333,10 +355,14 @@ class RealESRGANx2(_ConvNet):
             feat = self._conv(self.conv_up1, _nearest2x(feat), slope=0.2)
             feat = self._conv(self.conv_up2, _nearest2x(feat), slope=0.2)
             feat = self._conv(self.conv_hr, feat, slope=0.2)
-            with full_fp32():
-                out = _nhwc_conv(feat.float(), self.conv_last.weight, self.conv_last.bias)
+            out = _tail(feat, self.conv_last.weight, self.conv_last.bias,
+                        lambda: self._conv_last_plain(feat))
         with span("srnet.modpad"):
             return torch.clamp(out[:, :2 * h, :2 * w], 0.0, 1.0) * 255.0
+
+    def _conv_last_plain(self, feat: torch.Tensor) -> torch.Tensor:
+        with full_fp32():
+            return _nhwc_conv(feat.float(), self.conv_last.weight, self.conv_last.bias)
 
 
 def srnet_phase_fn(model: nn.Module):

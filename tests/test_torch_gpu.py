@@ -1098,7 +1098,7 @@ def test_diffusion_trainer_launches_the_transform_kernel(monkeypatch):
 N, H, W, B = 8, 1080, 1920, 8
 STUDENT_TRUNK_CONVS = 8  # srnet_student: head, six convs, up; each one conv_epilogue launch
 # realesrgan_x2plus: 23 RRDBs x 3 dense blocks x 5 convs, conv_first, conv_body,
-# conv_up1, conv_up2, conv_hr; conv_last runs in float32 without it
+# conv_up1, conv_up2, conv_hr; conv_last is the float32 tail, one tail_conv launch
 REALESRGAN_TRUNK_CONVS = 23 * 3 * 5 + 5
 CROP = (256, 512)  # centre crops of the 1080p clip held to the CPU
 SR_CROP = (128, 256)  # the RRDB tier and the ensemble: a CPU pass of a larger crop takes minutes
@@ -1230,7 +1230,8 @@ def test_main_path_at_1080p_on_the_card():
     assert max_level >= 1
     want = STUDENT_TRUNK_CONVS * max_level
     assert launches.get("conv_epilogue", 0) == want, launches
-    assert net_convs == {"epilogue.fused": want}, net_convs
+    assert launches.get("tail_conv", 0) == max_level, launches  # one tail a stage
+    assert net_convs == {"epilogue.fused": want, "tail.fused": max_level}, net_convs
     assert all(bool(torch.isfinite(v).all()) for v in metrics)
     assert metrics[1].mean().item() > metrics[0].mean().item() - 1.0
 
@@ -1279,7 +1280,81 @@ def test_realesrgan_x2plus_tier_fuses_every_conv_of_a_1080p_stage(tmp_path):
     torch.cuda.synchronize()
     assert restored.shape == frames.shape and restored.dtype == torch.uint8
     assert LAUNCHES.get("conv_epilogue", 0) == REALESRGAN_TRUNK_CONVS, dict(LAUNCHES)
-    assert dict(nets) == {"epilogue.fused": REALESRGAN_TRUNK_CONVS}, dict(nets)
+    assert LAUNCHES.get("tail_conv", 0) == 1, dict(LAUNCHES)
+    assert dict(nets) == {"epilogue.fused": REALESRGAN_TRUNK_CONVS, "tail.fused": 1}, dict(nets)
+
+
+# the nets' float32 tail at the cells' shapes: RRDB's finest stage (8 x 540 x
+# 960 in) in phase form, Real-ESRGAN's conv_last at 2x (8 x 1080 x 1920)
+TAIL_SHAPES = {"rrdb_phase": (8, 540, 960, 2, 2, 128),
+               "realesrgan_conv_last": (8, 1080, 1920, 64)}
+
+
+def _tail_errors(x, w, b, fn):
+    """Largest |fn(frame) - float64 conv| over the frames of ``x`` (bf16,
+    either geometry), ``fn`` given one frame; the float64 conv runs frame by
+    frame on the full-resolution image."""
+    import torch.nn.functional as F
+
+    from elvis_tpu_torch.ops.resize import interleave_phases
+
+    worst = 0.0
+    for i in range(x.shape[0]):
+        xi = x[i:i + 1]
+        full = interleave_phases(xi) if xi.dim() == 6 else xi
+        ref = F.conv2d(full.double().permute(0, 3, 1, 2).contiguous(), w.double(), b.double(),
+                       padding=1)
+        got = fn(xi)
+        got = interleave_phases(got) if xi.dim() == 6 else got
+        worst = max(worst, (got.permute(0, 3, 1, 2).double() - ref).abs().max().item())
+        del ref, got
+    return worst
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(TAIL_SHAPES))
+def test_tail_kernel_precision_and_determinism_at_the_cells_shapes(name):
+    """The ``tail_conv`` kernel on a bf16 input at a restore cell's shape:
+    its largest error against a float64 conv of the same bf16 input and
+    float32 weights is at most twice that of cuDNN's float32 conv (TF32 off)
+    on the same inputs, and the same conv in TF32 exceeds that limit (the
+    check tells a precision down apart). Two calls are bit-equal."""
+    import torch.nn.functional as F
+
+    from elvis_tpu_torch.device import full_fp32
+    from elvis_tpu_torch.kernels import tail_conv as tc
+    from elvis_tpu_torch.ops.resize import deinterleave_phases, interleave_phases
+
+    dev = _cuda()
+    shape = TAIL_SHAPES[name]
+    cin = shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(cin)
+    x = (torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    w = torch.randn((3, cin, 3, 3), generator=gen, device=dev) / (9 * cin) ** 0.5
+    b = torch.randn((3,), generator=gen, device=dev)
+
+    def cudnn(xi, tf32):
+        full = interleave_phases(xi) if xi.dim() == 6 else xi
+        with full_fp32():  # which restores the TF32 setting on exit
+            torch.backends.cudnn.allow_tf32 = tf32
+            out = F.conv2d(full.float().permute(0, 3, 1, 2), w, b, padding=1)
+        out = out.permute(0, 2, 3, 1)
+        return deinterleave_phases(out) if xi.dim() == 6 else out
+
+    before = tc.LAUNCHES["tail_conv"]
+    first = tc.tail_conv_cuda(x, w, b)
+    second = tc.tail_conv_cuda(x, w, b)
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES["tail_conv"] == before + 2
+    assert first.shape == shape[:-1] + (3,) and torch.equal(first, second)
+    del second
+    kernel = _tail_errors(x, w, b, lambda xi: tc.tail_conv_cuda(xi, w, b))
+    fp32 = _tail_errors(x, w, b, lambda xi: cudnn(xi, False))
+    tf32 = _tail_errors(x, w, b, lambda xi: cudnn(xi, True))
+    print(f"[tail] {name}: largest error kernel {kernel:.3e}, cuDNN float32 {fp32:.3e}, "
+          f"cuDNN TF32 {tf32:.3e}")
+    assert 0 < kernel <= 2 * fp32, (kernel, fp32)
+    assert tf32 > 2 * fp32, (tf32, fp32)
 
 
 @pytest.mark.gpu

@@ -162,7 +162,7 @@ def test_spans_and_modpad_counter(state):
         up(_frames(1, 15, 24))
     assert nets["modpad"] == before + 1
     names = [e.key for e in prof.key_averages()]
-    for span in ("srnet.body", "srnet.upsample_head", "srnet.modpad"):
+    for span in ("srnet.body", "srnet.upsample_head", "srnet.tail", "srnet.modpad"):
         assert span in names, span
 
 
