@@ -36,7 +36,16 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
      written once; 54 Cin FLOPs an output pixel at the FP32 rate) and beside
      the nets' own plain route, which the card took before the kernel (a
      float32 copy, then cuDNN's float32 conv over the NCHW view, in the
-     phase form with the scattered 4 Cin -> 12 kernel; TF32 off).
+     phase form with the scattered 4 Cin -> 12 kernel; TF32 off);
+  2d. E2FGVI-HQ's modulated deformable conv (``csrc/dcn.cu``, the sampling
+     into a bf16 column buffer, then one cuBLAS GEMM; no TPU kernel) at the
+     e2fgvi_hq cell's propagation step (1 x 270 x 486 x 256, 16 groups, to
+     128) and over 8 such frames: the columns bit-equal to the plain
+     version's, the conv timed whole and its sampling alone beside the
+     conv's bound (its GEMM's FLOPs at the bf16 rate, or its least bytes:
+     bf16 features in, float32 offsets and mask in, bf16 output out) and
+     beside the plain version on the card; no library route exists
+     (PyTorch has no deformable conv, ``torchvision`` is not installed).
 
 The port's paths are gated on the card by the ``-m gpu`` tests
 (``python -m pytest tests/test_torch_gpu.py tests/test_torch_conv_epilogue.py
@@ -59,6 +68,7 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 SEED = 0
 N, H, W, B = 8, 1080, 1920, 8
 
@@ -122,6 +132,9 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel replaced)
     "tail_conv": ("tail_conv.tail_conv_cuda",
                   "elvis_tpu_torch/kernels/csrc/tail_conv.cu",
                   "none: XLA runs the flax model's float32 tail conv"),
+    "dcn": ("dcn.deform_columns_cuda",
+            "elvis_tpu_torch/kernels/csrc/dcn.cu",
+            "none: the JAX package has no deformable conv"),
 }
 BLOCK_KERNELS = ("block_transform", "block_transform_batched")  # phase 2's pair
 KERNEL_TOL = 1e-3
@@ -566,6 +579,82 @@ def phase_tail():
     return rows
 
 
+DCN_ROWS = [  # (label, frames): the e2fgvi_hq cell's propagation step, and 8 of them
+    ("e2fgvi_step", 1),
+    ("e2fgvi_8_frames", 8),
+]
+
+
+def phase_dcn():
+    """The deformable conv at the cell's shapes: the columns held bit-equal
+    to the plain version, the conv within the GEMM's bf16 rounding of it,
+    timed with CUDA events beside its bound and the plain version (phase 2
+    built it). Returns the rows."""
+    from elvis_tpu_torch.kernels import dcn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    h, w, c, groups, co = H // 4, (W + 24) // 4, 256, 16, 128  # 1080x1944 padded, at 1/4
+    rows = []
+    for label, n in DCN_ROWS:
+        x = torch.randn((n, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
+        flow = torch.randn((n, 1, 1, 2), generator=gen, device=dev) * 3
+        offset = (10 * torch.tanh(0.3 * torch.randn((n, h, w, 18 * groups), generator=gen,
+                                                     device=dev))
+                  + flow.repeat(1, h, w, 9 * groups)).contiguous()
+        mask = torch.sigmoid(torch.randn((n, h, w, 9 * groups), generator=gen, device=dev))
+        weight = (torch.randn((co, c, 3, 3), generator=gen, device=dev)
+                  / (9 * c) ** 0.5).to(torch.bfloat16)
+        bias = torch.randn((co,), generator=gen, device=dev).to(torch.bfloat16)
+        for i in range(n):
+            got = dcn.deform_columns_cuda(x[i:i + 1], offset[i:i + 1], mask[i:i + 1], groups)
+            want = dcn.deform_columns(x[i:i + 1], offset[i:i + 1], mask[i:i + 1], groups)
+            check(torch.equal(got, want), f"dcn {label}: columns differ from the plain version")
+            del got, want
+        out = dcn.modulated_deform_conv(x, offset, mask, weight, bias, groups)
+        plain = torch.cat([torch.addmm(bias, dcn.deform_columns(
+            x[i:i + 1], offset[i:i + 1], mask[i:i + 1], groups).reshape(-1, 9 * c),
+            dcn.pack_weight(weight, groups)).reshape(1, h, w, co) for i in range(n)])
+        err = (out.float() - plain.float()).abs().max().item()
+        check(err <= KERNEL_TOL, f"dcn {label}: kernel and plain version differ by {err}")
+        del out, plain
+
+        def kernel():
+            return dcn.modulated_deform_conv(x, offset, mask, weight, bias, groups)
+
+        def sampling():
+            for i in range(n):
+                dcn.deform_columns_cuda(x[i:i + 1], offset[i:i + 1], mask[i:i + 1], groups)
+
+        def plain_route():
+            for i in range(n):
+                cols = dcn.deform_columns(x[i:i + 1], offset[i:i + 1], mask[i:i + 1], groups)
+                torch.addmm(bias, cols.reshape(-1, 9 * c), dcn.pack_weight(weight, groups))
+
+        runs = {"kernel": [], "sampling": []}
+        for key in ("kernel", "sampling", "sampling", "kernel"):
+            runs[key].append(cuda_ms(kernel if key == "kernel" else sampling, iters=10))
+        plain_ms = cuda_ms(plain_route, iters=2, warmup=1)
+        pixels = n * h * w
+        nbytes = pixels * (2 * c + 4 * 27 * groups + 2 * co) + 2 * 9 * c * co * n
+        flops = 2 * 9 * c * co * pixels
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+        bound, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+        ms, sample_ms = (sum(runs[k]) / len(runs[k]) for k in ("kernel", "sampling"))
+        print(f"[dcn] {label} ({n}, {h}, {w}, {c}) -> {co}, {groups} groups: columns bit-equal, "
+              f"max |conv - plain| {err:.3g}; conv {ms:.4f} ms "
+              f"({', '.join(f'{r:.4f}' for r in runs['kernel'])}), sampling alone "
+              f"{sample_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
+              f"{nbytes:,} B, {flops:,} FLOP), {bound / ms:.1%} of bound")
+        rows.append({"label": label, "shape": [n, h, w, c, groups, co], "max_abs_err": err,
+                     "ms": ms, "sampling_ms": sample_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+        del x, offset, mask
+        torch.cuda.empty_cache()
+    print(json.dumps({"dcn": rows}))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -581,15 +670,17 @@ def main() -> int:
     kernel_results, frame_rows = phase_kernels()
     epilogue_rows = phase_epilogue()
     tail_rows = phase_tail()
+    dcn_rows = phase_dcn()
     # the transform kernel's headline row is what the paths launch: uint8
     # frames, b=8, the main path's table; the batched kernel's is the block
     # contract at the same table (b=8, L=4, M=259,200, C=3); the epilogue's
     # is the student's trunk conv (256 channels, bias and leaky ReLU); the
-    # tail's is RRDB's finest stage
+    # tail's is RRDB's finest stage; the deformable conv's one propagation step
     all_rows = {"block_transform": frame_rows + kernel_results["block_transform"],
                 "block_transform_batched": kernel_results["block_transform_batched"],
                 "conv_epilogue": epilogue_rows,
-                "tail_conv": tail_rows}
+                "tail_conv": tail_rows,
+                "dcn": dcn_rows}
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         rows = all_rows[kname]

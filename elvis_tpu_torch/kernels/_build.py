@@ -36,6 +36,7 @@ SOURCES: Dict[str, Tuple[Path, Tuple[str, ...]]] = {
     "block_transform_batched": (_HERE / "csrc" / "block_transform_batched.cu", NVCC),
     "conv_epilogue": (_HERE / "csrc" / "conv_epilogue.cu", NVCC),
     "tail_conv": (_HERE / "csrc" / "tail_conv.cu", NVCC),
+    "dcn": (_HERE / "csrc" / "dcn.cu", NVCC),
     "nvc_rc": (_HERE.parent / "codec" / "nvc" / "csrc" / "rangecoder.cpp", GXX),
 }
 

@@ -13,12 +13,14 @@ trunk), plus the model's hyper-parameters as scalars (``features`` and
 ``conv_up2``, ``conv_hr``, ``conv_last``); ``features``,
 ``levels`` and the trained ``max_strength`` for the deblur net;
 ``features`` and ``temporal_window`` for the inpaint net; ``features`` for
-the saliency net and the diffusion UNet).
+the saliency net and the diffusion UNet; ``arch = "e2fgvi_hq"`` for
+E2FGVI-HQ's generator, whose layers carry E2FGVI's state-dict names, convs
+and linears under ``kernel``, LayerNorms under ``scale``).
 ``params_from_flax`` turns such a tree into a PyTorch state_dict (HWIO
 kernels -> OIHW, dense kernels transposed) and ``write_npz`` writes a
 state_dict back in that format (the trainers' checkpoints); ``load_srnet``,
-``load_deblur``, ``load_inpaint``, ``load_saliency`` and ``load_diffusion``
-build the models.
+``load_deblur``, ``load_inpaint``, ``load_saliency``, ``load_diffusion`` and
+``load_e2fgvi`` build the models.
 
 The JAX module's generic names work on a module the caller built:
 ``init_params`` (its fresh state, drawn from an explicit generator),
@@ -41,6 +43,7 @@ from elvis_tpu_torch.device import resolve_device
 from elvis_tpu_torch.models.deblur_unet import DeblurUNet
 from elvis_tpu_torch.metrics.perceptual import PerceptualNet
 from elvis_tpu_torch.models.diffusion import DiffusionRestorer, _CondUNet
+from elvis_tpu_torch.models.e2fgvi import E2FGVIHQ
 from elvis_tpu_torch.models.inpaint_net import InpaintNet
 from elvis_tpu_torch.models.saliency_net import SaliencyNet
 from elvis_tpu_torch.models.srnet import RealESRGANx2, SRNet, SRNetCompact
@@ -64,11 +67,15 @@ __all__ = [
     "load_inpaint",
     "load_saliency",
     "load_diffusion",
+    "load_e2fgvi",
+    "E2FGVI_ARCH",
 ]
 
 
 # the ``arch`` scalar of a Real-ESRGAN RRDBNet weights file
 REALESRGAN_ARCH = "realesrgan_rrdbnet"
+# and of an E2FGVI-HQ generator's
+E2FGVI_ARCH = "e2fgvi_hq"
 
 
 def weights_dir() -> str:
@@ -303,4 +310,38 @@ def load_diffusion(path: str, device: "str | torch.device" = "cuda") -> Diffusio
     tree, meta = read_npz(path)
     model = DiffusionRestorer(features=int(meta["features"]))
     model.unet.load_state_dict(params_from_flax(tree))
+    return model.to(dev).eval().requires_grad_(False)
+
+
+def _state_from_params(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict of a weights file whose layers may hold both leaves
+    and sub-layers (``deform_align/backward_/kernel`` beside
+    ``deform_align/backward_/conv_offset/0/kernel``): ``kernel`` (HWIO ->
+    OIHW, ``(in, out)`` -> ``(out, in)``) and ``scale`` become ``weight``."""
+    state = {}
+    with np.load(path) as data:
+        for key in data.files:
+            if "/" not in key:
+                continue
+            _, *layer, leaf = key.split("/")
+            a = np.asarray(data[key], np.float32)
+            if leaf == "kernel":
+                a = a.transpose((3, 2, 0, 1) if a.ndim == 4 else (1, 0))
+            name = ".".join(layer) + (".bias" if leaf == "bias" else ".weight")
+            state[name] = torch.from_numpy(np.ascontiguousarray(a))
+    return state
+
+
+def load_e2fgvi(path: str, device: "str | torch.device" = "cuda",
+                dtype: torch.dtype = torch.bfloat16) -> E2FGVIHQ:
+    """An inference-ready E2FGVI-HQ generator (trunk in ``dtype``) from a
+    port weights file whose meta has ``arch = "e2fgvi_hq"``, on ``device``.
+    Raises ``ValueError`` for a file of another model."""
+    dev = resolve_device(device)
+    with np.load(path) as data:
+        arch = data["arch"].item() if "arch" in data.files else None
+    if arch != E2FGVI_ARCH:
+        raise ValueError(f"{path} holds {arch or 'no arch'}, not E2FGVI-HQ's generator")
+    model = E2FGVIHQ(dtype=dtype)
+    model.load_state_dict(_state_from_params(path))  # each tensor cast to its parameter's dtype
     return model.to(dev).eval().requires_grad_(False)

@@ -18,13 +18,14 @@ with TF32 off. Their output is ``clip(lanczos4_2x(x) + 127.5 * tail(...),
 output is the net's own, clamped as ``RealESRGANer`` does (see the class).
 
 Each trunk conv takes its epilogue (bias, leaky ReLU, scaled residuals) as
-arguments. In bf16 inference on a card (no autograd) the conv runs without
-its bias and the hand-written kernel ``kernels.conv_epilogue`` applies all
-of it in one in-place pass, bit-equal to the PyTorch ops it replaces; on the
-CPU, in float32 and with gradients the PyTorch ops run as written. The
-``nets`` counters ``epilogue.fused`` and ``epilogue.plain`` count the trunk
-convs of each route, and ``modpad`` the ``RealESRGANx2`` inputs of odd
-height or width. The float32 tail (``_TailConv``, ``RealESRGANx2``'s
+arguments; the conv and the tail take the routes of ``kernels.routes``,
+which E2FGVI-HQ shares. In bf16 inference on a card (no autograd) the conv
+runs without its bias and the hand-written kernel ``kernels.conv_epilogue``
+applies all of it in one in-place pass, bit-equal to the PyTorch ops it
+replaces; on the CPU, in float32 and with gradients the PyTorch ops run as
+written. The ``nets`` counters ``epilogue.fused`` and ``epilogue.plain``
+count the trunk convs of each route, and ``modpad`` the ``RealESRGANx2``
+inputs of odd height or width. The float32 tail (``_TailConv``, ``RealESRGANx2``'s
 ``conv_last``) takes the same rule: on a card, on the bf16 trunk output,
 with autograd off, the hand-written kernel ``kernels.tail_conv`` reads the
 bf16 tensor where it lies (no float32 copy, no NCHW view, no phase-domain
@@ -46,8 +47,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from elvis_tpu_torch.device import full_fp32
-from elvis_tpu_torch.kernels.conv_epilogue import conv_epilogue_cuda, epilogue_rest
-from elvis_tpu_torch.kernels.tail_conv import tail_conv, tail_conv_cuda
+from elvis_tpu_torch.kernels.routes import float32_tail as _tail
+from elvis_tpu_torch.kernels.routes import nhwc_conv as _nhwc_conv
+from elvis_tpu_torch.kernels.routes import trunk_conv
+from elvis_tpu_torch.kernels.tail_conv import tail_conv
 from elvis_tpu_torch.ops.resize import interleave_phases, resize, upsample2x_phases
 from elvis_tpu_torch.utils.trace import counter, span
 
@@ -72,24 +75,6 @@ def _phase_kernel_select() -> np.ndarray:
                     kx, q = (b + dx) // 2, (b + dx) % 2
                     s[ky + 1, kx + 1, 2 * p + q, 2 * a + b, dy + 1, dx + 1] = 1.0
     return s
-
-
-def _nhwc_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """3x3 SAME convolution of an NHWC tensor (OIHW weight) -> NHWC."""
-    out = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=1)
-    return out.permute(0, 2, 3, 1)
-
-
-def _tail(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, plain) -> torch.Tensor:
-    """The float32 tail (3 output channels) on ``x``: the ``tail_conv``
-    kernel on a bf16 CUDA tensor with autograd off, else ``plain()``."""
-    with span("srnet.tail"):
-        if (x.is_cuda and x.dtype == torch.bfloat16 and weight.shape[0] == 3
-                and not torch.is_grad_enabled()):
-            NETS["tail.fused"] += 1
-            return tail_conv_cuda(x, weight, bias)
-        NETS["tail.plain"] += 1
-        return plain()
 
 
 class _TailConv(nn.Module):
@@ -134,15 +119,8 @@ class _ConvNet(nn.Module):
         """``conv`` on ``h`` in ``dtype``, then ``leaky_relu(., slope)``,
         ``residual + scale * .`` and ``outer + outer_scale * .`` (each only
         where given), fused into the one kernel in bf16 inference on a card."""
-        h = h.to(self.dtype)
-        weight, bias = conv.weight.to(self.dtype), conv.bias.to(self.dtype)
-        if h.is_cuda and self.dtype == torch.bfloat16 and not torch.is_grad_enabled():
-            NETS["epilogue.fused"] += 1
-            y = _nhwc_conv(h, weight, None).contiguous()
-            return conv_epilogue_cuda(y, bias, slope, residual, scale, outer, outer_scale)
-        NETS["epilogue.plain"] += 1
-        return epilogue_rest(_nhwc_conv(h, weight, bias), slope, residual, scale, outer,
-                             outer_scale)
+        return trunk_conv(conv, h, slope, residual, scale, outer, outer_scale,
+                          dtype=self.dtype)
 
     def _body(self, blocks, closing: nn.Conv2d, h: torch.Tensor) -> torch.Tensor:
         """The RRDB chain ``blocks`` on ``h``, then ``closing`` with the long

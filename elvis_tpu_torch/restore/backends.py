@@ -21,9 +21,11 @@ import torch
 
 from elvis_tpu_torch.core.blocks import dilate_block_mask, upsample_map
 from elvis_tpu_torch.device import full_fp32, resolve_device
+from elvis_tpu_torch.models.e2fgvi import dilate_hole, inpaint_video
 from elvis_tpu_torch.models.io import (
     load_deblur,
     load_diffusion,
+    load_e2fgvi,
     load_inpaint,
     load_srnet,
     srnet_arch,
@@ -405,14 +407,77 @@ def _e2fgvi_window(config) -> int:
     return max(2 * int(config.e2fgvi_neighbor_stride), 1)
 
 
+def _temporal_pde_fallback(config) -> Tuple[Callable, int]:
+    """(fill, window): the E2FGVI slots without weights, the temporal fill
+    at the E2FGVI window and reference set, then a 40-iteration PDE pass."""
+    w = _e2fgvi_window(config)
+    refs, nref = int(config.e2fgvi_ref_stride or 0), int(config.e2fgvi_num_ref)
+
+    def fallback(f, m, b, mv=None):
+        seed = restore_removal_temporal(f, m, b, window=w, ref_stride=refs, max_refs=nref,
+                                        motion_field=mv)
+        return restore_removal_diffusion(seed, m, b, iters=40)
+
+    return fallback, w
+
+
+def _e2fgvi_hq_backend(config, device) -> Tuple[BackendFn, str]:
+    """'e2fgvi_hq': the E2FGVI fields drive ``test.py``'s loop (local
+    windows of ``e2fgvi_neighbor_stride`` around every such frame, reference
+    frames every ``e2fgvi_ref_stride``, at most ``e2fgvi_num_ref`` of them,
+    -1 for all), the removed blocks' pixels dilated by
+    ``e2fgvi_mask_dilation`` 3x3 crosses as ``test.py`` dilates its masks;
+    the motion hint is not read (the net computes its own flows). Frames
+    in, frames of the same dtype out, uint8 values. Resolving it on a card
+    turns on cuDNN's algorithm search for the process: at 1080p cuDNN's
+    heuristics took a kernel without tensor cores for some of the net's
+    bf16 convs."""
+    ns, rs = int(config.e2fgvi_neighbor_stride), int(config.e2fgvi_ref_stride)
+    nref, dil = int(config.e2fgvi_num_ref), int(config.e2fgvi_mask_dilation or 0)
+    path = default_params_path("e2fgvi_hq", config.inpaint_params_path,
+                               getattr(config, "auto_load_checkpoints", True))
+    overlap = int(config.e2fgvi_chunk_overlap or 4 * ns)
+    chunk = config.e2fgvi_parallel_chunk_length
+
+    def knobs(fn):
+        fn.temporal_overlap = overlap
+        if chunk:
+            fn.frame_chunk = int(chunk)
+        return fn
+
+    if not path:
+        fallback, w = _temporal_pde_fallback(config)
+        return (knobs(_with_hole_dilation(fallback, dil)),
+                f"temporal+pde (no e2fgvi_hq checkpoint)[window={w}]")
+    dev = resolve_device(device)
+    model = load_e2fgvi(path, dev)
+    if dev.type == "cuda":
+        torch.backends.cudnn.benchmark = True
+
+    def e2fgvi_hq(f, m, b, mv=None):
+        hole = dilate_hole(upsample_map(m.bool(), int(b)), dil)
+        with torch.inference_mode():
+            out = inpaint_video(model, f, hole, ns, rs, nref)
+        return out if f.dtype == torch.uint8 else out.to(f.dtype)
+
+    fn = knobs(e2fgvi_hq)
+    fn.net = model
+    return (fn, f"e2fgvi_hq:{path}[neighbor_stride={ns},ref_stride={rs},num_ref={nref},"
+            f"overlap={overlap}]")
+
+
 def resolve_inpaint_backend(name: str, config,
                             device: "str | torch.device" = "cuda") -> Tuple[BackendFn, str]:
     """Removal-restoration backends: 'diffusion' (the PDE fill, the
     counterpart of OpenCV's Telea fill), 'temporal' (motion propagation,
-    the ProPainter counterpart) and 'neural' / 'inpaint_net' / 'e2fgvi'
+    the ProPainter counterpart), 'neural' / 'inpaint_net' / 'e2fgvi'
     (InpaintNet over a temporal seed, the E2FGVI counterpart; without
-    weights the seed plus a 40-iteration PDE pass). The net's weights load
-    onto ``device``.
+    weights the seed plus a 40-iteration PDE pass) and 'e2fgvi_hq'
+    (E2FGVI-HQ's published generator through ``test.py``'s loop,
+    ``models.e2fgvi.inpaint_video``, from the weights file
+    ``config.inpaint_params_path`` names, which must hold that model; no
+    weights ship, so without one it is the 'neural' fallback: the seed plus
+    the PDE pass). The nets' weights load onto ``device``.
 
     A windowed backend carries ``temporal_overlap``: the context frames a
     frame chunk needs past each boundary for chunked == unchunked (twice the
@@ -437,6 +502,8 @@ def resolve_inpaint_backend(name: str, config,
         if config.propainter_parallel_chunk_length:
             temporal.frame_chunk = int(config.propainter_parallel_chunk_length)
         return temporal, f"temporal_propagation[window={w},overlap={ov},ref_stride={refs}]"
+    if name == "e2fgvi_hq":
+        return _e2fgvi_hq_backend(config, device)
     if name in ("neural", "inpaint_net", "e2fgvi"):
         w = _e2fgvi_window(config)
         ov = int(config.e2fgvi_chunk_overlap or 2 * w)
@@ -459,9 +526,7 @@ def resolve_inpaint_backend(name: str, config,
         path = default_params_path("inpaint", config.inpaint_params_path,
                                    getattr(config, "auto_load_checkpoints", True))
         if not path:
-            def fallback(f, m, b, mv=None):
-                return restore_removal_diffusion(seed_fill(f, m, b, mv=mv), m, b, iters=40)
-
+            fallback, _ = _temporal_pde_fallback(config)
             return (knobs(_with_hole_dilation(fallback, dil)),
                     f"temporal+pde (no inpaint checkpoint)[window={w}]")
         net = load_inpaint(path, resolve_device(device))

@@ -6,7 +6,9 @@ trainer's steps on the card against the CPU and against themselves, and
 the dense library route of the transform against its kernel; then the
 paths at full width (8 frames of 1080p): the main, blur and codec paths,
 ``run_elvis`` with every backend, the external encoders, PRESLEY, the
-parallel layer, the trainers, the searches and the evaluators.
+parallel layer, the trainers, the searches and the evaluators; E2FGVI-HQ's
+deformable conv kernel and its ``e2fgvi_hq`` backend against the
+benchmark's reference.
 
 They skip where no CUDA device is present. This file imports no JAX, so
 on a machine with a card and no JAX it runs without the repo's conftest:
@@ -840,6 +842,108 @@ def test_realesrgan_x2plus_at_published_width_matches_the_benchmark_reference(h,
     limits = cfg["checks"]["restore_seeded"]["limits"]
     assert float(diff.mean(dim=(1, 2, 3)).max()) <= limits["frame_mae_lsb"], float(diff.mean())
     assert float((diff > 4).float().mean()) <= limits["over4_share"]
+
+
+def _dcn_inputs(n, h, w, c, groups, dev, seed):
+    """Features, E2FGVI-like offsets (a flow of a few pixels plus ``10 tanh``
+    of a small draw, some taps off the frame), a sigmoid mask, an OIHW weight
+    and a bias: bf16 features and weights, float32 offsets and mask."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
+    flow = torch.randn((n, 1, 1, 2), generator=gen, device=dev) * 3
+    offset = 10 * torch.tanh(0.3 * torch.randn((n, h, w, 18 * groups), generator=gen,
+                                                device=dev)) + flow.repeat(1, h, w, 9 * groups)
+    mask = torch.sigmoid(torch.randn((n, h, w, 9 * groups), generator=gen, device=dev))
+    weight = (torch.randn((128, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5)
+    bias = torch.randn((128,), generator=gen, device=dev)
+    return x, offset, mask, weight.to(torch.bfloat16), bias.to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w,c,groups", [(8, 270, 486, 256, 16),  # the cell's propagation
+                                            (3, 37, 53, 64, 8), (2, 17, 29, 48, 3)])
+def test_dcn_kernel_matches_plain(n, h, w, c, groups):
+    """The deformable conv's sampling kernel: its bf16 columns bit-equal to
+    the plain version's on the card, frame by frame; the whole conv (one
+    GEMM a frame chunk) within the bf16 GEMM's rounding of the plain
+    version's; one launch a frame chunk."""
+    from elvis_tpu_torch.kernels import dcn
+
+    dev = _cuda()
+    x, offset, mask, weight, bias = _dcn_inputs(n, h, w, c, groups, dev, seed=h + c)
+    for i in range(n):
+        got = dcn.deform_columns_cuda(x[i:i + 1], offset[i:i + 1], mask[i:i + 1], groups)
+        want = dcn.deform_columns(x[i:i + 1], offset[i:i + 1], mask[i:i + 1], groups)
+        assert torch.equal(got, want), (i, (got.float() - want.float()).abs().max().item())
+    chunk = max(1, dcn.COLUMN_BUDGET_BYTES // (h * w * c * 9 * 2))
+    before = dcn.LAUNCHES["dcn"]
+    out = dcn.modulated_deform_conv(x, offset, mask, weight, bias, groups)
+    torch.cuda.synchronize()
+    assert dcn.LAUNCHES["dcn"] == before + -(-n // chunk)
+    packed = dcn.pack_weight(weight, groups).float()
+    for i in range(n):
+        cols = dcn.deform_columns(x[i:i + 1], offset[i:i + 1], mask[i:i + 1], groups).float()
+        exact = cols.reshape(-1, 9 * c) @ packed + bias.float()
+        err = (out[i].reshape(-1, 128).float() - exact).abs()
+        assert float((err - 2.0**-7 * exact.abs()).max()) <= 1e-2, float(err.max())
+
+
+@pytest.mark.gpu
+def test_e2fgvi_hq_at_published_width_matches_the_benchmark_reference(tmp_path, monkeypatch):
+    """The ``e2fgvi_hq`` backend (every published width, 8 blocks, 16 deform
+    groups) on the benchmark configuration's seeded weights, 8 frames of
+    240x432 with a quarter of the blocks removed (4x4 attention windows),
+    against the benchmark's plain float32 reference: non-hole pixels
+    bit-equal, the holes (the removed blocks dilated by 4 px) within the
+    configuration's limits of ``correct``; one ``dcn.calls`` and one kernel
+    launch a propagation step (forwards over frames 0-5 and 0-7: 2 x 5 + 2 x
+    7); every trunk conv fused. cuDNN's algorithm search, which the backend
+    turns on, is put back afterwards."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from elvis_tpu_torch.degrade.removal import apply_selective_removal, stretch_frames
+    from elvis_tpu_torch.kernels import dcn
+    from elvis_tpu_torch.pipeline.config import ElvisConfig
+    from elvis_tpu_torch.restore.backends import resolve_inpaint_backend
+    from elvis_tpu_torch.utils.trace import counter
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from port_bench.harness import content
+    from port_bench.paths import inpaint_seeded as ps
+    from port_bench.reference.e2fgvi import ReferenceE2FGVI
+
+    dev = _cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", torch.backends.cudnn.benchmark)
+    cfg = json.loads((root / "port_bench/configs/e2fgvi_hq_1080p.json").read_text())
+    path = str(tmp_path / "e2fgvi_hq.npz")
+    ps.write_weights(path, ps.seeded_weights(cfg["arch"], cfg["weights_seed"], cfg["assumed"]))
+    mix = json.loads((root / "port_bench/traffic/segments_1080p_removal_seeded.json").read_text())
+    n, h, w = 8, 240, 432
+    gen = content.generator(2**31 + 11, dev)
+    src = content.make_segments(mix["content"], 1, n, h, w, gen, dev)[0]
+    scores = ps.removability(mix["removal"], 1, n, h // 8, w // 8, gen, dev)[0]
+    shrunk, mask = apply_selective_removal(src, scores, 8, 0.25, 1)
+    frames = stretch_frames(shrunk, mask, 8)
+    fn, prov = resolve_inpaint_backend("e2fgvi_hq", ElvisConfig(inpaint_params_path=path),
+                                       device=dev)
+    assert prov.startswith("e2fgvi_hq:"), prov
+    nets = counter("nets")
+    before = (nets["dcn.calls"], dcn.LAUNCHES["dcn"], nets["epilogue.plain"])
+    got = fn(frames, mask, 8)
+    torch.cuda.synchronize()
+    assert (nets["dcn.calls"] - before[0], dcn.LAUNCHES["dcn"] - before[1]) == (24, 24)
+    assert nets["epilogue.plain"] == before[2]
+    hole = ps.hole_pixels(mask, 8, 4)
+    blocks = ps.hole_pixels(mask, 8, 0)
+    want = ReferenceE2FGVI(path, dev).inpaint(frames, hole, 5, 10, -1)
+    gaps = ps.compare(got, want, frames, hole)
+    limits = cfg["checks"]["inpaint_seeded"]["limits"]
+    assert gaps["nonhole_changed"] == 0, gaps
+    assert all(gaps[k] <= lim for k, lim in limits.items()), gaps
+    assert not torch.equal(got[hole & ~blocks], frames[hole & ~blocks])  # the dilation fills
 
 
 @pytest.mark.gpu
