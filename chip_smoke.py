@@ -45,11 +45,22 @@ Phases (each prints its own lines; any fault exits non-zero and prints no
      conv's bound (its GEMM's FLOPs at the bf16 rate, or its least bytes:
      bf16 features in, float32 offsets and mask in, bf16 output out) and
      beside the plain version on the card; no library route exists
-     (PyTorch has no deformable conv, ``torchvision`` is not installed).
+     (PyTorch has no deformable conv, ``torchvision`` is not installed);
+  2e. E2FGVI-HQ's feed-forward fold (``csrc/ffn_fold.cu``: fold, its
+     normalisation, unfold, GELU and the bf16 cast in one pass; no TPU
+     kernel) at the e2fgvi_hq cell's two forwards (8 and 6 frames of 90 x
+     162 tokens of 1960, a 270 x 486 map): bit-equal to the plain version,
+     two calls bit-equal, timed beside its byte bound (fc1's bf16 output read
+     once, fc2's input written once) and the plain version (PyTorch's
+     float32 fold, division, unfold and GELU, which the card ran before);
+     and the span from fc1's output to fc2's both ways: the plain version
+     then fc2 over its transposed view, against the kernel then fc2 over its
+     contiguous output. No library route exists.
 
 The port's paths are gated on the card by the ``-m gpu`` tests
 (``python -m pytest tests/test_torch_gpu.py tests/test_torch_conv_epilogue.py
-tests/test_torch_tail_conv.py -m gpu --noconftest -q``) and timed by the benchmark (``port_bench/run.py``).
+tests/test_torch_tail_conv.py tests/test_torch_ffn_fold.py -m gpu --noconftest
+-q``) and timed by the benchmark (``port_bench/run.py``).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -135,6 +146,9 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel replaced)
     "dcn": ("dcn.deform_columns_cuda",
             "elvis_tpu_torch/kernels/csrc/dcn.cu",
             "none: the JAX package has no deformable conv"),
+    "ffn_fold": ("ffn_fold.ffn_fold_gelu_cuda",
+                 "elvis_tpu_torch/kernels/csrc/ffn_fold.cu",
+                 "none: XLA fuses the JAX model's fold and unfold"),
 }
 BLOCK_KERNELS = ("block_transform", "block_transform_batched")  # phase 2's pair
 KERNEL_TOL = 1e-3
@@ -655,6 +669,77 @@ def phase_dcn():
     return rows
 
 
+FFN_ROWS = [  # (label, frames): the e2fgvi_hq cell's forwards over frames 0-7 and 0-5
+    ("e2fgvi_8_frames", 8),
+    ("e2fgvi_6_frames", 6),
+]
+
+
+def phase_ffn():
+    """The feed-forward fold at the cell's shapes: bit-equal to the plain
+    version, two calls bit-equal, timed with CUDA events beside its byte
+    bound and the plain version, and with fc2 after each (phase 2 built
+    it). Returns the rows."""
+    import torch.nn.functional as F
+
+    from elvis_tpu_torch.kernels import ffn_fold as ff
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    size = (H // 4, (W + 24) // 4)  # 1080x1944 padded, at 1/4
+    th, tw = ff.token_grid(size)
+    hidden, dim = 1960, 512
+    w2 = (torch.randn((dim, hidden), generator=gen, device=dev) / hidden ** 0.5).to(torch.bfloat16)
+    b2 = (torch.randn((dim,), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    rows = []
+    for label, n in FFN_ROWS:
+        h = (torch.randn((n, th * tw, hidden), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+        got = ff.ffn_fold_gelu_cuda(h, th, tw, size)
+        again = ff.ffn_fold_gelu_cuda(h, th, tw, size)
+        want = ff.ffn_fold_gelu(h, th, tw, size)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"ffn_fold {label}: {int((got != want).sum())} values "
+                                      f"differ from the plain version")
+        check(torch.equal(got, again), f"ffn_fold {label}: two calls differ")
+        del got, again, want
+
+        def kernel():
+            return ff.ffn_fold_gelu_cuda(h, th, tw, size)
+
+        def plain():
+            return ff.ffn_fold_gelu(h, th, tw, size)
+
+        def fc2_before():
+            return F.linear(ff.ffn_fold_gelu(h, th, tw, size), w2, b2)
+
+        def fc2_after():
+            return F.linear(ff.ffn_fold_gelu_cuda(h, th, tw, size), w2, b2)
+
+        runs = {"kernel": [], "plain": []}
+        for key in ("kernel", "plain", "plain", "kernel"):
+            runs[key].append(cuda_ms(kernel if key == "kernel" else plain,
+                                     iters=20 if key == "kernel" else 3))
+        before_ms = cuda_ms(fc2_before, iters=3)
+        after_ms = cuda_ms(fc2_after, iters=10)
+        nbytes = 2 * 2 * h.numel()
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ms, plain_ms = (sum(runs[k]) / len(runs[k]) for k in ("kernel", "plain"))
+        print(f"[ffn_fold] {label} ({n}, {th * tw}, {hidden}): bit-equal to the plain version, "
+              f"two calls bit-equal; kernel {ms:.4f} ms "
+              f"({', '.join(f'{r:.4f}' for r in runs['kernel'])}), plain {plain_ms:.4f} ms "
+              f"({', '.join(f'{r:.4f}' for r in runs['plain'])}), bound {bound:.4f} ms (bytes: "
+              f"{nbytes:,} B), {bound / ms:.1%} of bound; with fc2: the plain version then fc2 "
+              f"over its view {before_ms:.4f} ms, the kernel then fc2 {after_ms:.4f} ms")
+        rows.append({"label": label, "shape": [n, th * tw, hidden], "max_abs_err": 0.0,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+                     "library_ms": None, "with_fc2_before_ms": before_ms,
+                     "with_fc2_ms": after_ms})
+        del h
+        torch.cuda.empty_cache()
+    print(json.dumps({"ffn_fold": rows}))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -671,16 +756,19 @@ def main() -> int:
     epilogue_rows = phase_epilogue()
     tail_rows = phase_tail()
     dcn_rows = phase_dcn()
+    ffn_rows = phase_ffn()
     # the transform kernel's headline row is what the paths launch: uint8
     # frames, b=8, the main path's table; the batched kernel's is the block
     # contract at the same table (b=8, L=4, M=259,200, C=3); the epilogue's
     # is the student's trunk conv (256 channels, bias and leaky ReLU); the
-    # tail's is RRDB's finest stage; the deformable conv's one propagation step
+    # tail's is RRDB's finest stage; the deformable conv's one propagation step;
+    # the feed-forward fold's the cell's 8-frame forward
     all_rows = {"block_transform": frame_rows + kernel_results["block_transform"],
                 "block_transform_batched": kernel_results["block_transform_batched"],
                 "conv_epilogue": epilogue_rows,
                 "tail_conv": tail_rows,
-                "dcn": dcn_rows}
+                "dcn": dcn_rows,
+                "ffn_fold": ffn_rows}
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         rows = all_rows[kname]

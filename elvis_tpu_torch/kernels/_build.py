@@ -37,6 +37,7 @@ SOURCES: Dict[str, Tuple[Path, Tuple[str, ...]]] = {
     "conv_epilogue": (_HERE / "csrc" / "conv_epilogue.cu", NVCC),
     "tail_conv": (_HERE / "csrc" / "tail_conv.cu", NVCC),
     "dcn": (_HERE / "csrc" / "dcn.cu", NVCC),
+    "ffn_fold": (_HERE / "csrc" / "ffn_fold.cu", NVCC),
     "nvc_rc": (_HERE.parent / "codec" / "nvc" / "csrc" / "rangecoder.cpp", GXX),
 }
 

@@ -61,6 +61,9 @@ Departures from upstream, which runs float32 throughout:
 - the rolled and pooled keys are gathered with one index table per frame
   size rather than four rolls and an unfold; the same keys and masks;
 - the feed-forward's fold and unfold run in float32 on the bf16 linear's
+  output; on a card, in bf16 inference, the fold, its normalisation, the
+  unfold, GELU and the cast back run as one kernel (``kernels.ffn_fold``),
+  bit-equal to the float32 ops they replace, and fc2 reads its contiguous
   output.
 
 The convs take the SR nets' routes (``kernels.routes``): every conv of the
@@ -74,9 +77,11 @@ float32 tail (the ``tail_conv`` kernel, counters ``nets.tail.fused`` /
 ``torch.profiler`` the forward records ``e2fgvi.flow``,
 ``e2fgvi.encoder``, ``e2fgvi.propagation`` (with ``e2fgvi.dcn`` around
 each deformable conv), ``e2fgvi.transformer`` (with ``e2fgvi.attention``
-around each block's windows, pooling, keys and attention) and
-``e2fgvi.decoder``; the ``nets`` counters ``e2fgvi.forwards``,
-``e2fgvi.frames`` and ``dcn.calls`` count every call.
+around each block's windows, pooling, keys and attention, and
+``e2fgvi.ffn`` around each block's feed-forward: fc1, the fold and fc2)
+and ``e2fgvi.decoder``; the ``nets`` counters ``e2fgvi.forwards``,
+``e2fgvi.frames`` and ``dcn.calls`` count every call, ``ffn.fused`` and
+``ffn.plain`` each feed-forward by its route.
 """
 
 from __future__ import annotations
@@ -90,6 +95,7 @@ import torch.nn.functional as F
 
 from elvis_tpu_torch.device import full_fp32
 from elvis_tpu_torch.kernels.dcn import modulated_deform_conv
+from elvis_tpu_torch.kernels.ffn_fold import ffn_fold_gelu, ffn_fold_gelu_cuda
 from elvis_tpu_torch.kernels.routes import float32_tail, trunk_conv
 from elvis_tpu_torch.kernels.tail_conv import tail_conv
 from elvis_tpu_torch.utils.trace import counter, span
@@ -463,15 +469,20 @@ class FusionFeedForward(nn.Module):
         self.conv2 = nn.Sequential(nn.GELU(), nn.Linear(hidden, dim))
 
     def forward(self, y: torch.Tensor, output_size: tuple) -> torch.Tensor:
+        """``y`` ``(T, th, tw, 512)`` -> fc2(gelu(unfold(fold(fc1(y)) /
+        fold(1)))): the fold, unfold and GELU as the ``ffn_fold`` kernel on a
+        bf16 CUDA tensor with autograd off, else as the plain ops."""
         t, th, tw, _ = y.shape
         fc1, fc2 = self.conv1[0], self.conv2[1]
-        h = F.linear(y, fc1.weight, fc1.bias).reshape(t, th * tw, -1).float().transpose(1, 2)
-        fold = dict(output_size=output_size, kernel_size=PATCH, padding=PAD, stride=STRIDE)
-        ones = torch.ones((1, PATCH * PATCH, th * tw), dtype=torch.float32, device=y.device)
-        h = F.fold(h, **fold) / F.fold(ones, **fold)
-        h = F.unfold(h, kernel_size=PATCH, padding=PAD, stride=STRIDE).transpose(1, 2)
-        h = F.gelu(h).to(fc2.weight.dtype)
-        return F.linear(h, fc2.weight, fc2.bias).reshape(t, th, tw, -1)
+        with span("e2fgvi.ffn"):
+            h = F.linear(y, fc1.weight, fc1.bias).reshape(t, th * tw, -1)
+            if h.is_cuda and h.dtype == torch.bfloat16 and not torch.is_grad_enabled():
+                NETS["ffn.fused"] += 1
+                h = ffn_fold_gelu_cuda(h, th, tw, output_size)
+            else:
+                NETS["ffn.plain"] += 1
+                h = ffn_fold_gelu(h, th, tw, output_size)
+            return F.linear(h, fc2.weight, fc2.bias).reshape(t, th, tw, -1)
 
 
 class TemporalFocalTransformerBlock(nn.Module):

@@ -237,14 +237,17 @@ def test_spans_and_counters(weights):
             model(_masked(frames, hole), 2)
     names = {e.key for e in prof.key_averages()}
     for span in ("e2fgvi.flow", "e2fgvi.encoder", "e2fgvi.propagation", "e2fgvi.dcn",
-                 "e2fgvi.transformer", "e2fgvi.attention", "e2fgvi.decoder"):
+                 "e2fgvi.transformer", "e2fgvi.attention", "e2fgvi.ffn", "e2fgvi.decoder"):
         assert span in names, span
     grew = {k: nets[k] - before.get(k, 0) for k in ("e2fgvi.forwards", "e2fgvi.frames",
-                                                     "dcn.calls", "epilogue.plain")}
+                                                     "dcn.calls", "epilogue.plain",
+                                                     "ffn.plain", "ffn.fused")}
     # a deformable step a direction; the encoder's 9 trunk convs, 4 offset convs a
-    # step, the backbone pair a frame and direction, fusion, bias conv, decoder's 3
+    # step, the backbone pair a frame and direction, fusion, bias conv, decoder's 3;
+    # a feed-forward a block
     assert grew == {"e2fgvi.forwards": 1, "e2fgvi.frames": 2, "dcn.calls": 2,
-                    "epilogue.plain": 9 + 2 * 4 + 2 * 2 * 2 + 1 + 1 + 3}, grew
+                    "epilogue.plain": 9 + 2 * 4 + 2 * 2 * 2 + 1 + 1 + 3,
+                    "ffn.plain": E.DEPTH, "ffn.fused": 0}, grew
 
 
 def test_benchmark_flop_count_equals_the_operations_run(weights, monkeypatch):
